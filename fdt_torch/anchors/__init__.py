@@ -1,0 +1,5 @@
+from fdt_torch.anchors.priors import (feature_map_sizes, prior_grid,
+                                      pyramid_face_priors, pyramid_head_priors)
+
+__all__ = ["prior_grid", "pyramid_face_priors", "pyramid_head_priors",
+           "feature_map_sizes"]

@@ -1,0 +1,221 @@
+"""Micro-batching inference serving (counterpart of fdt/apps/serving.py:41-262,
+the "pyramidbox" family).
+
+  MicroBatcher       background daemon worker coalescing concurrent requests
+                     into batches (the first request opens a window of
+                     `max_wait_ms`; everything that arrives before it closes,
+                     up to `max_batch`, rides the same device dispatch),
+                     resolving per-request futures and relaying per-batch
+                     errors.  close() drains the queue and joins the worker.
+  DetectionService   resizes requests to the service frame size on the host,
+                     runs the batch at its own size (eager PyTorch compiles
+                     nothing per batch size, so fdt's power-of-two bucket
+                     padding would only add work), and maps boxes back to
+                     each request's pixels.
+
+The HTTP front end of fdt/apps/serving.py waits for a later slice.
+"""
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from concurrent.futures import Future
+from typing import Callable, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from fdt_torch.infer.pyramidbox import detections_to_rows
+
+_SENTINEL = object()
+CLOSE_TIMEOUT_S = 30.0
+
+
+class MicroBatcher:
+    """Coalesce concurrent `submit` calls into list-batched `batch_fn` calls.
+
+    batch_fn(items: list) -> sequence of per-item results (same length/order).
+    A batch_fn exception fails every future of that batch; the worker keeps
+    serving subsequent batches.
+    """
+
+    def __init__(self, batch_fn: Callable[[list], Sequence],
+                 max_batch: int = 32, max_wait_ms: float = 5.0):
+        if max_batch < 1:
+            raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+        self._batch_fn = batch_fn
+        self.max_batch = max_batch
+        self.max_wait_s = max_wait_ms / 1e3
+        self._q: queue.Queue = queue.Queue()
+        self._lock = threading.Lock()
+        self._closed = False
+        self.requests = 0
+        self.batches = 0
+        self._size_sum = 0
+        self._size_max = 0
+        self._worker = threading.Thread(target=self._run, daemon=True,
+                                        name="fdt-torch-microbatcher")
+        self._worker.start()
+
+    def submit(self, item) -> Future:
+        """Enqueue one request; returns a Future resolving to its result."""
+        fut: Future = Future()
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("MicroBatcher is closed")
+            self.requests += 1
+            self._q.put((fut, item))
+        return fut
+
+    def close(self) -> None:
+        """Stop accepting requests, drain in-flight ones, join the worker.
+
+        If the worker does not finish within CLOSE_TIMEOUT_S, still-queued
+        futures are failed instead of left pending forever."""
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True
+        self._q.put(_SENTINEL)
+        self._worker.join(CLOSE_TIMEOUT_S)
+        if self._worker.is_alive():
+            while True:
+                try:
+                    item = self._q.get_nowait()
+                except queue.Empty:
+                    break
+                if item is not _SENTINEL and not item[0].done():
+                    item[0].set_exception(
+                        RuntimeError("MicroBatcher closed before this "
+                                     "request was served"))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def stats(self) -> dict:
+        n = self.batches
+        return {"requests": self.requests, "batches": n,
+                "max_batch_size": self._size_max,
+                "mean_batch_size": (self._size_sum / n) if n else 0.0}
+
+    def _run(self) -> None:
+        while True:
+            first = self._q.get()
+            if first is _SENTINEL:
+                return
+            batch = [first]
+            stop = False
+            deadline = time.monotonic() + self.max_wait_s
+            while len(batch) < self.max_batch:
+                timeout = deadline - time.monotonic()
+                if timeout <= 0:
+                    break
+                try:
+                    item = self._q.get(timeout=timeout)
+                except queue.Empty:
+                    break
+                if item is _SENTINEL:
+                    stop = True
+                    break
+                batch.append(item)
+            # claim every future first: a client-cancelled future then cannot
+            # make set_result raise mid-loop and poison the rest of the batch
+            live = [(f, it) for f, it in batch
+                    if f.set_running_or_notify_cancel()]
+            futures = [f for f, _ in live]
+            if futures:
+                try:
+                    results = self._batch_fn([it for _, it in live])
+                    if len(results) != len(futures):
+                        raise RuntimeError(
+                            f"batch_fn returned {len(results)} results for "
+                            f"{len(futures)} items")
+                    for fut, res in zip(futures, results):
+                        fut.set_result(res)
+                except Exception as e:  # noqa: BLE001 — relay to the callers
+                    for fut in futures:
+                        if not fut.done():
+                            fut.set_exception(e)
+            self.batches += 1
+            self._size_sum += len(futures)
+            self._size_max = max(self._size_max, len(futures))
+            if stop:
+                return
+
+
+def resize_bilinear(image: np.ndarray, width: int, height: int) -> np.ndarray:
+    """[H,W,3] uint8 → [height,width,3] uint8, bilinear with half-pixel
+    centres and no antialiasing, rounded to nearest: within 1 LSB of
+    cv2.resize(INTER_LINEAR), whose fixed-point weights round differently."""
+    x = torch.from_numpy(np.ascontiguousarray(image)).permute(2, 0, 1)[None].float()
+    y = F.interpolate(x, size=(height, width), mode="bilinear",
+                      align_corners=False, antialias=False)
+    return y[0].permute(1, 2, 0).round().clamp(0, 255).to(torch.uint8).numpy()
+
+
+class DetectionService:
+    """Batched PyramidBox detection serving.
+
+    Requests are BGR uint8 images of ANY resolution; results are [N, 5]
+    float32 rows [x1, y1, x2, y2, score] in the REQUEST's pixel coordinates
+    (empty [0, 5] when nothing is detected: serving drops the eval
+    protocol's [[0, 0, 0, 0, 0.4]] sentinel).
+    """
+
+    def __init__(self, family: str, detector, frame_size=(640, 480),
+                 threshold: float = 0.4, nms_thresh: float = 0.35,
+                 max_batch: int = 32, max_wait_ms: float = 5.0):
+        if family != "pyramidbox":
+            raise ValueError(f"unknown family: {family!r} (this port serves "
+                             "'pyramidbox')")
+        self.family = family
+        self.detector = detector
+        self.frame_w, self.frame_h = frame_size
+        self.threshold = threshold
+        self.nms_thresh = nms_thresh
+        self.batcher = MicroBatcher(self._run_batch, max_batch=max_batch,
+                                    max_wait_ms=max_wait_ms)
+
+    def submit(self, image_bgr: np.ndarray) -> Future:
+        if image_bgr.ndim != 3 or image_bgr.shape[2] != 3:
+            raise ValueError(f"expected HxWx3 BGR image, got {image_bgr.shape}")
+        return self.batcher.submit(np.asarray(image_bgr, np.uint8))
+
+    def detect(self, image_bgr: np.ndarray) -> np.ndarray:
+        """Blocking single-request detect (rides a shared batch)."""
+        return self.submit(image_bgr).result()
+
+    def stats(self) -> dict:
+        return {"family": self.family,
+                "frame_size": [self.frame_w, self.frame_h],
+                "threshold": self.threshold, **self.batcher.stats()}
+
+    def close(self) -> None:
+        self.batcher.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def _run_batch(self, images: list[np.ndarray]) -> list[np.ndarray]:
+        sizes = [(im.shape[1], im.shape[0]) for im in images]  # (w, h)
+        frames = np.stack(
+            [im if im.shape[:2] == (self.frame_h, self.frame_w)
+             else resize_bilinear(im, self.frame_w, self.frame_h)
+             for im in images])
+        det = self.detector.detect_tensor(frames, conf_thresh=self.threshold,
+                                          nms_thresh=self.nms_thresh)
+        return [self._to_rows(d, *size) for d, size in zip(det, sizes)]
+
+    def _to_rows(self, det: np.ndarray, w: int, h: int) -> np.ndarray:
+        r = detections_to_rows(det, self.threshold, [w, h, w, h])
+        if r.shape == (1, 5) and not r[0, :4].any():  # empty sentinel
+            return np.empty((0, 5), np.float32)
+        return r.astype(np.float32)

@@ -1,0 +1,65 @@
+"""Typed configuration for the PyramidBox family (copy of fdt/config.py:14-103).
+
+The port keeps its own copy instead of importing fdt.config, so that nothing
+of the JAX package is needed at run time.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class PriorConfig:
+    """SSD-style prior grid over one or more source maps."""
+    strides: Tuple[int, ...]
+    boxes: Tuple[int, ...]
+    scales: Tuple[int, ...] = ()
+    aspect_ratios: Tuple[Tuple[float, ...], ...] = ()
+
+    def __post_init__(self):
+        n = len(self.strides)
+        if not self.scales:
+            object.__setattr__(self, "scales", (1,) * n)
+        if not self.aspect_ratios:
+            object.__setattr__(self, "aspect_ratios", ((),) * n)
+
+
+@dataclasses.dataclass(frozen=True)
+class DetectConfig:
+    """Test-time decode + per-class NMS parameters."""
+    num_classes: int = 2
+    background_label: int = 0
+    top_k: int = 750           # max detections kept per class
+    conf_thresh: float = 0.3
+    nms_thresh: float = 0.5
+    nms_top_k: int = 5000      # boxes entering NMS
+    variance: Tuple[float, float] = (0.1, 0.2)
+    # Reference quirk: a class with exactly ONE candidate above conf_thresh
+    # is skipped (fdt/config.py:46-49).  Kept by default for bit-faithful
+    # output; set False for the fixed behaviour.
+    drop_single_candidate: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class PyramidConfig:
+    """One PyramidBox family variant."""
+    name: str
+    input_size: int = 640
+    num_sources: int = 6
+    face_priors: PriorConfig = dataclasses.field(
+        default_factory=lambda: PriorConfig(
+            strides=(4, 8, 16, 32, 64, 128), boxes=(16, 32, 64, 128, 256, 512)))
+    head_priors: PriorConfig = dataclasses.field(
+        default_factory=lambda: PriorConfig(
+            strides=(8, 16, 32, 64, 128, 128), boxes=(16, 32, 64, 128, 256, 512)))
+    detect: DetectConfig = dataclasses.field(default_factory=DetectConfig)
+
+
+PYRAMID_REPO = PyramidConfig(
+    name="repo",
+    detect=DetectConfig(conf_thresh=0.3, nms_thresh=0.5),
+)
+
+# Mean BGR pixel subtracted before the forward
+PIXEL_MEAN_BGR = (104.0, 117.0, 123.0)

@@ -1,0 +1,81 @@
+"""Carry fdt's flax weights across to the port's modules.
+
+fdt stores variables as a flax tree {"params", "batch_stats"} and writes it as
+an npz of f16 `params/...` and f32 `batch_stats/...` arrays
+(fdt/models/loader.py:29-70).  Its module names are the reference torch paths
+with `.` spelled `__` (fdt/models/torch_convert.py:37-52), so the conversion
+is mechanical:
+
+  params/<mod>/kernel  [kH,kW,I,O] → <mod>.weight [O,I,kH,kW]
+  params/<mod>/bias               → <mod>.bias
+  params/<mod>/scale              → <mod>.weight        (BatchNorm γ)
+  batch_stats/<mod>/mean          → <mod>.running_mean
+  batch_stats/<mod>/var           → <mod>.running_var
+  (and <mod>.num_batches_tracked = 0, which a strict load expects)
+
+Weights are converted in memory at load time; nothing converted is stored.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from fdt_torch.models.pyramidbox import PyramidBox
+
+_LEAF_TO_TORCH = {
+    "kernel": "weight",
+    "bias": "bias",
+    "scale": "weight",
+    "mean": "running_mean",
+    "var": "running_var",
+}
+
+
+def _flatten(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, prefix + (str(k),))
+        else:
+            yield prefix + (str(k),), v
+
+
+def from_jax_variables(variables) -> dict[str, torch.Tensor]:
+    """flax {"params", "batch_stats"} tree of numpy arrays → torch state dict
+    (float32 tensors)."""
+    sd: dict[str, torch.Tensor] = {}
+    for collection in ("params", "batch_stats"):
+        for path, leaf in _flatten(variables.get(collection, {})):
+            mod = ".".join(path[:-1]).replace("__", ".")
+            key = f"{mod}.{_LEAF_TO_TORCH[path[-1]]}"
+            w = np.asarray(leaf, np.float32)
+            if w.ndim == 4:
+                w = w.transpose(3, 2, 0, 1)
+            elif w.ndim == 2:
+                w = w.T
+            sd[key] = torch.from_numpy(np.ascontiguousarray(w))
+            if collection == "batch_stats" and path[-1] == "mean":
+                sd[f"{mod}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+    return sd
+
+
+def load_npz(path: str) -> dict:
+    """Read a variables npz (fdt's save_variables_npz format) into a nested
+    {"params", "batch_stats"} tree of float32 numpy arrays."""
+    out: dict = {}
+    with np.load(path) as z:
+        for key in z.files:
+            parts = key.split("/")
+            node = out
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = np.asarray(z[key], np.float32)
+    out.setdefault("batch_stats", {})
+    return out
+
+
+def load_pyramidbox(path: str) -> PyramidBox:
+    """A full-depth PyramidBox (eval mode, CPU, float32) with the weights of a
+    variables npz, loaded strict."""
+    model = PyramidBox()
+    model.load_state_dict(from_jax_variables(load_npz(path)), strict=True)
+    return model.eval()

@@ -1,0 +1,129 @@
+"""PyramidBox (S3FD + LFPN + SSH context + max-in-out) with a ResNet50
+backbone (counterpart of fdt/models/pyramidbox.py:25-179).
+
+NCHW throughout; the face heads reshape channels-last into prior-major
+[B, P, ·] tensors, so prior order matches fdt's NHWC reshape.  The
+head-supervision branch (head_loc / head_conf) keeps its parameters, so that
+a full checkpoint loads strict, but detection never computes it: fdt's
+compiled graph drops it as dead code too.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from fdt_torch.models.common import (ContextTexture, SSHContext, batch_norm,
+                                     conv, max_in_out_conf, max_pool)
+
+
+class Bottleneck(nn.Module):
+    """ResNet50 bottleneck."""
+
+    def __init__(self, cin: int, planes: int, stride: int = 1):
+        super().__init__()
+        p = planes
+        self.conv1 = conv(cin, p, 1, bias=False)
+        self.bn1 = batch_norm(p)
+        self.conv2 = conv(p, p, 3, stride, 1, bias=False)
+        self.bn2 = batch_norm(p)
+        self.conv3 = conv(p, 4 * p, 1, bias=False)
+        self.bn3 = batch_norm(4 * p)
+        self.downsample = None
+        if stride != 1 or cin != 4 * p:
+            self.downsample = nn.Sequential(conv(cin, 4 * p, 1, stride, bias=False),
+                                            batch_norm(4 * p))
+
+    def forward(self, x):
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        sc = x if self.downsample is None else self.downsample(x)
+        return F.relu(out + sc)
+
+
+def _resnet_stage(cin: int, num_blocks: int, planes: int, stride: int) -> nn.Sequential:
+    return nn.Sequential(*[Bottleneck(cin if i == 0 else 4 * planes, planes,
+                                      stride if i == 0 else 1)
+                           for i in range(num_blocks)])
+
+
+def _extra_layer(cin: int, mid: int, out: int) -> nn.Sequential:
+    """conv1×1 → bn → relu → conv3×3/2 → bn → relu (ReLUs at indices 2 and 5)."""
+    return nn.Sequential(conv(cin, mid, 1), batch_norm(mid), nn.ReLU(),
+                         conv(mid, out, 3, 2, 1), batch_norm(out), nn.ReLU())
+
+
+class PyramidBox(nn.Module):
+    """forward(x [B,3,H,W]) → dict:
+      face_loc  [B, P, 4] float32    face_conf [B, P, 2] float32 (logits,
+      max-in-out applied)            source_shapes: ((f_width, f_height), ...)
+    """
+
+    _SSH_IN = {"conv2_SSH": 256, "conv3_SSH": 512, "conv4_SSH": 1024,
+               "conv5_SSH": 2048, "conv6_SSH": 512, "conv7_SSH": 256}
+
+    def __init__(self, num_blocks: Sequence[int] = (3, 4, 6, 3)):
+        super().__init__()
+        self.conv1 = conv(3, 64, 7, 2, 3, bias=False)
+        self.bn1 = batch_norm(64)
+        self.layer1 = _resnet_stage(64, num_blocks[0], 64, 1)
+        self.layer2 = _resnet_stage(256, num_blocks[1], 128, 2)
+        self.layer3 = _resnet_stage(512, num_blocks[2], 256, 2)
+        self.layer4 = _resnet_stage(1024, num_blocks[3], 512, 2)
+        self.layer5 = _extra_layer(2048, 512, 512)
+        self.layer6 = _extra_layer(512, 128, 256)
+
+        self.latlayer_fc = conv(2048, 2048, 1)
+        self.latlayer_c6 = conv(512, 512, 1)
+        self.latlayer_c7 = conv(256, 256, 1)
+        self.conv5_ct_py = ContextTexture(2048, 1024, 1024)
+        self.conv4_ct_py = ContextTexture(1024, 512, 512)
+        self.conv3_ct_py = ContextTexture(512, 256, 256)
+        self.smooth_c3 = conv(256, 256, 3, 1, 1)
+        self.smooth_c4 = conv(512, 512, 3, 1, 1)
+        self.smooth_c5 = conv(1024, 1024, 3, 1, 1)
+        for name, cin in self._SSH_IN.items():
+            self.add_module(name, SSHContext(cin, 256))
+
+        self.face_conf = nn.ModuleList([conv(512, 4, 3, 1, 1) for _ in range(6)])
+        self.face_loc = nn.ModuleList([conv(512, 4, 3, 1, 1) for _ in range(6)])
+        self.head_loc = nn.ModuleList([conv(512, 4, 3, 1, 1) for _ in range(5)])
+        self.head_conf = nn.ModuleList([conv(512, 2, 3, 1, 1) for _ in range(5)])
+
+    def forward(self, x: torch.Tensor) -> dict:
+        c1 = max_pool(F.relu(self.bn1(self.conv1(x))), 3, 2, 1)
+        c2 = self.layer1(c1)
+        c3 = self.layer2(c2)
+        c4 = self.layer3(c3)
+        c5 = self.layer4(c4)
+        c6 = self.layer5(c5)
+        c7 = self.layer6(c6)
+
+        c5_lat = self.latlayer_fc(c5)
+        c6_lat = self.latlayer_c6(c6)
+        c7_lat = self.latlayer_c7(c7)
+        c4_fuse = self.conv5_ct_py(c5_lat, c4)
+        c3_fuse = self.conv4_ct_py(c4_fuse, c3)
+        c2_fuse = self.conv3_ct_py(c3_fuse, c2)
+        c2_fuse = self.smooth_c3(c2_fuse)
+        c3_fuse = self.smooth_c4(c3_fuse)
+        c4_fuse = self.smooth_c5(c4_fuse)
+
+        sources = [self.conv2_SSH(c2_fuse), self.conv3_SSH(c3_fuse),
+                   self.conv4_SSH(c4_fuse), self.conv5_SSH(c5_lat),
+                   self.conv6_SSH(c6_lat), self.conv7_SSH(c7_lat)]
+
+        b = x.shape[0]
+        locs, confs = [], []
+        for i, s in enumerate(sources):
+            tmp_conf = self.face_conf[i](s).permute(0, 2, 3, 1)
+            confs.append(max_in_out_conf(tmp_conf, first_source=(i == 0)).reshape(b, -1, 2))
+            locs.append(self.face_loc[i](s).permute(0, 2, 3, 1).reshape(b, -1, 4))
+        return {
+            "face_loc": torch.cat(locs, 1).float(),
+            "face_conf": torch.cat(confs, 1).float(),
+            "source_shapes": tuple((s.shape[3], s.shape[2]) for s in sources),
+        }

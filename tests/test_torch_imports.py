@@ -1,0 +1,52 @@
+"""fdt_torch and chip_smoke.py run where there is no jax, flax or cv2: they
+import none of those, nor anything of the JAX package fdt.  Checked on the
+sources with ast, so that `fdt_torch` is not mistaken for `fdt`."""
+import ast
+import pathlib
+
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "cv2", "fdt"}
+SOURCES = sorted((REPO / "fdt_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def imported_roots(path: pathlib.Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots |= {alias.name.split(".")[0] for alias in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+        elif (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+              and node.func.attr == "import_module" and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            roots.add(str(node.args[0].value).split(".")[0])
+    return roots
+
+
+def test_sources_found():
+    assert len(SOURCES) > 10
+    assert imported_roots(REPO / "fdt" / "geometry" / "nms.py") >= {"jax", "fdt"}
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_flax_cv2_or_fdt_import(path):
+    assert not imported_roots(path) & FORBIDDEN
+
+
+def test_every_module_imports_without_building_kernels():
+    """Importing builds and loads nothing: a kernel is built at first launch."""
+    import importlib
+    import pkgutil
+
+    import fdt_torch
+    from fdt_torch.ops import _build
+    names = [m.name for m in pkgutil.walk_packages(fdt_torch.__path__, "fdt_torch.")]
+    assert "fdt_torch.ops.nms" in names and "fdt_torch.apps.serving" in names
+    for name in names:
+        importlib.import_module(name)
+    assert _build._lib is None
