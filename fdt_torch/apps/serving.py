@@ -1,5 +1,5 @@
-"""Micro-batching inference serving (counterpart of fdt/apps/serving.py:41-262,
-the "pyramidbox" family).
+"""Micro-batching inference serving (counterpart of fdt/apps/serving.py:41-277,
+the "pyramidbox" and "facebox" families).
 
   MicroBatcher       background daemon worker coalescing concurrent requests
                      into batches (the first request opens a window of
@@ -13,7 +13,8 @@ the "pyramidbox" family).
                      padding would only add work), and maps boxes back to
                      each request's pixels.
 
-The HTTP front end of fdt/apps/serving.py waits for a later slice.
+The HTTP front end and the mtcnn family of fdt/apps/serving.py wait for a
+later slice.
 """
 from __future__ import annotations
 
@@ -159,22 +160,28 @@ def resize_bilinear(image: np.ndarray, width: int, height: int) -> np.ndarray:
 
 
 class DetectionService:
-    """Batched PyramidBox detection serving.
+    """Batched detection serving over one detector family.
 
-    Requests are BGR uint8 images of ANY resolution; results are [N, 5]
-    float32 rows [x1, y1, x2, y2, score] in the REQUEST's pixel coordinates
-    (empty [0, 5] when nothing is detected: serving drops the eval
-    protocol's [[0, 0, 0, 0, 0.4]] sentinel).
+    family: "pyramidbox" (a PyramidBoxDetector of any variant, frames of
+    `frame_size`) or "facebox" (a FaceBoxDetector; frames are its config's
+    fixed square input, whatever `frame_size` says).  Requests are BGR uint8
+    images of ANY resolution; results are [N, 5] float32 rows
+    [x1, y1, x2, y2, score] in the REQUEST's pixel coordinates (empty [0, 5]
+    when nothing is detected: serving drops the eval protocol's
+    [[0, 0, 0, 0, 0.4]] sentinel).
     """
 
     def __init__(self, family: str, detector, frame_size=(640, 480),
                  threshold: float = 0.4, nms_thresh: float = 0.35,
                  max_batch: int = 32, max_wait_ms: float = 5.0):
-        if family != "pyramidbox":
+        if family not in ("pyramidbox", "facebox"):
             raise ValueError(f"unknown family: {family!r} (this port serves "
-                             "'pyramidbox')")
+                             "'pyramidbox' and 'facebox')")
         self.family = family
         self.detector = detector
+        if family == "facebox":  # fixed square input
+            s = detector.cfg.input_size
+            frame_size = (s, s)
         self.frame_w, self.frame_h = frame_size
         self.threshold = threshold
         self.nms_thresh = nms_thresh
@@ -210,12 +217,23 @@ class DetectionService:
             [im if im.shape[:2] == (self.frame_h, self.frame_w)
              else resize_bilinear(im, self.frame_w, self.frame_h)
              for im in images])
+        if self.family == "facebox":
+            return [self._facebox_rows(b, s, *size) for (b, s), size
+                    in zip(self.detector.detect_batch(frames), sizes)]
         det = self.detector.detect_tensor(frames, conf_thresh=self.threshold,
                                           nms_thresh=self.nms_thresh)
-        return [self._to_rows(d, *size) for d, size in zip(det, sizes)]
+        return [self._pyramidbox_rows(d, *size) for d, size in zip(det, sizes)]
 
-    def _to_rows(self, det: np.ndarray, w: int, h: int) -> np.ndarray:
+    def _pyramidbox_rows(self, det: np.ndarray, w: int, h: int) -> np.ndarray:
         r = detections_to_rows(det, self.threshold, [w, h, w, h])
         if r.shape == (1, 5) and not r[0, :4].any():  # empty sentinel
             return np.empty((0, 5), np.float32)
         return r.astype(np.float32)
+
+    def _facebox_rows(self, boxes: np.ndarray, scores: np.ndarray, w: int,
+                      h: int) -> np.ndarray:
+        """The detector's own thresholds apply; serving keeps the rows with
+        score >= threshold, in pixels."""
+        keep = scores >= self.threshold
+        px = boxes[keep] * np.array([w, h, w, h], np.float32)
+        return np.column_stack([px, scores[keep]]).astype(np.float32)

@@ -1,4 +1,5 @@
-"""Typed configuration for the PyramidBox family (copy of fdt/config.py:14-103).
+"""Typed configuration for the PyramidBox family and FaceBoxes (copy of
+fdt/config.py:14-136).
 
 The port keeps its own copy instead of importing fdt.config, so that nothing
 of the JAX package is needed at run time.
@@ -61,5 +62,52 @@ PYRAMID_REPO = PyramidConfig(
     detect=DetectConfig(conf_thresh=0.3, nms_thresh=0.5),
 )
 
+PYRAMID_TRY1 = PyramidConfig(
+    name="try1",
+    detect=DetectConfig(conf_thresh=0.3, nms_thresh=0.3),
+)
+
+PYRAMID_TRY2 = PyramidConfig(
+    name="try2",
+    detect=DetectConfig(conf_thresh=0.3, nms_thresh=0.5),
+)
+
+_FIVE_MAP_FACE = PriorConfig(strides=(4, 8, 16, 32, 64), boxes=(16, 32, 64, 128, 256))
+_FIVE_MAP_HEAD = PriorConfig(strides=(8, 16, 32, 64, 64), boxes=(16, 32, 64, 128, 256))
+
+PYRAMID_TRY3 = PyramidConfig(
+    name="try3", num_sources=5,
+    face_priors=_FIVE_MAP_FACE, head_priors=_FIVE_MAP_HEAD,
+    detect=DetectConfig(conf_thresh=0.2, nms_thresh=0.35),
+)
+PYRAMID_TRY4 = dataclasses.replace(PYRAMID_TRY3, name="try4")
+PYRAMID_TRY5 = dataclasses.replace(PYRAMID_TRY3, name="try5")
+
+PYRAMID_CONFIGS = {c.name: c for c in
+                   (PYRAMID_REPO, PYRAMID_TRY1, PYRAMID_TRY2,
+                    PYRAMID_TRY3, PYRAMID_TRY4, PYRAMID_TRY5)}
+
 # Mean BGR pixel subtracted before the forward
 PIXEL_MEAN_BGR = (104.0, 117.0, 123.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class FaceBoxConfig:
+    """FaceBoxes anchor-densification config."""
+    input_size: int = 1024
+    steps: Tuple[int, ...] = (32, 64, 128)
+    sizes: Tuple[int, ...] = (32, 256, 512)
+    aspect_ratios: Tuple[Tuple[int, ...], ...] = ((1, 2, 4), (1,), (1,))
+    feature_map_sizes: Tuple[int, ...] = (32, 16, 8)
+    density: Tuple[Tuple[int, ...], ...] = ((-3, -1, 1, 3), (-1, 1), (0,))
+    variance: Tuple[float, float] = (0.1, 0.2)
+    conf_thresh: float = 0.35
+    nms_thresh: float = 0.5
+    match_thresh: float = 0.35
+
+
+FACEBOX = FaceBoxConfig()
+
+# The reference's alternative decode_tensor post-processing keeps priors whose
+# face probability is strictly above 0.4, then NMS at 0.5 (fdt/config.py:125-136)
+FACEBOX_PINNED = FaceBoxConfig(conf_thresh=0.4)

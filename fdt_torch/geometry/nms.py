@@ -7,8 +7,9 @@ shapes:
   1. take the top-`budget` boxes by score with a stable descending sort
      (padding carries -inf scores),
   2. solve the greedy recurrence keep[i] = valid[i] ∧ ¬∃j<i: S[j,i] ∧ keep[j]:
-     on the card by the hand-written kernel (fdt_torch.ops.nms), on the CPU
-     by the fixpoint `nms_keep_mask`, which is that kernel's plain version,
+     on the card by a hand-written kernel (fdt_torch.ops.nms: K1, tiled, or
+     K2, the literal loop), on the CPU by the fixpoint `nms_keep_mask`, which
+     is the kernels' plain version,
   3. stable-compact the kept indices to the front.
 
 Every function takes leading batch dimensions: one call solves all the
@@ -67,7 +68,7 @@ def nms_keep_mask(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
                   seg_id: torch.Tensor | None = None) -> torch.Tensor:
     """Greedy-NMS keep mask over boxes already sorted by descending score.
 
-    The plain PyTorch version of kernel K1 (fdt_torch.ops.nms), by fixpoint
+    The plain PyTorch version of kernels K1 and K2 (fdt_torch.ops.nms), by fixpoint
     iteration over the suppression DAG as in fdt/geometry/nms.py:110-128.
 
     Args:
@@ -95,9 +96,12 @@ def nms_keep_mask(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
     return keep
 
 
+_IMPLS = ("auto", "xla", "pallas", "pallas_tiled")
+
+
 def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float,
                budget: int, out_k: int, mode: str = "union",
-               valid: torch.Tensor | None = None):
+               valid: torch.Tensor | None = None, impl: str = "auto"):
     """Greedy NMS with fixed-size output.
 
     Args:
@@ -108,14 +112,23 @@ def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float,
       out_k:  detections returned.
       mode:   "union" | "minimum".
       valid:  optional [..., N] bool mask.
+      impl:   fdt's four values, each meaning the same keep set:
+        "pallas_tiled" → kernel K1 (nms_keep_tiled, with out_k);
+        "pallas"       → kernel K2 (nms_keep_greedy);
+        "xla"          → the plain fixpoint nms_keep_mask, on whatever
+                         device the tensors are on;
+        "auto"         → K1, which is the plain version on a CPU tensor.
+        A kernel wrapper computes the plain version for a CPU tensor.
 
     Returns:
       keep_idx: [..., out_k] int32 indices into the input, in descending-score
         order; entries past `count` are arbitrary (mask with count).
       count:   [...] int32 number of kept boxes (≤ out_k).
     """
-    from fdt_torch.ops.nms import nms_keep_tiled
+    from fdt_torch.ops.nms import nms_keep_greedy, nms_keep_tiled
 
+    if impl not in _IMPLS:
+        raise ValueError(f"unknown NMS impl {impl!r}; expected one of {_IMPLS}")
     n = scores.shape[-1]
     if valid is not None:
         scores = torch.where(valid, scores, -torch.inf)
@@ -126,7 +139,13 @@ def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float,
     top_scores, order = top_scores[..., :k], order[..., :k]
     top_boxes = torch.gather(boxes, -2, order[..., None].expand(*order.shape, 4))
     top_valid = top_scores > -torch.inf
-    keep = nms_keep_tiled(top_boxes, top_valid, iou_thresh, mode=mode, out_k=out_k)
+    if impl == "pallas":
+        keep = nms_keep_greedy(top_boxes, top_valid, iou_thresh, mode=mode)
+    elif impl == "xla":
+        keep = nms_keep_mask(top_boxes, top_valid, iou_thresh, mode=mode)
+    else:
+        keep = nms_keep_tiled(top_boxes, top_valid, iou_thresh, mode=mode,
+                              out_k=out_k)
     # stable-compact kept entries to the front (they are already score-ordered)
     comp = torch.sort((~keep).to(torch.uint8), dim=-1, stable=True).indices
     count = torch.clamp(keep.sum(dim=-1), max=out_k).to(torch.int32)

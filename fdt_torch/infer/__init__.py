@@ -1,4 +1,5 @@
 from fdt_torch.infer.detect import ssd_detect
+from fdt_torch.infer.facebox import FaceBoxDetector
 from fdt_torch.infer.pyramidbox import PyramidBoxDetector, detections_to_rows
 
-__all__ = ["ssd_detect", "PyramidBoxDetector", "detections_to_rows"]
+__all__ = ["ssd_detect", "PyramidBoxDetector", "FaceBoxDetector", "detections_to_rows"]

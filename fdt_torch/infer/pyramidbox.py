@@ -1,4 +1,5 @@
-"""End-to-end PyramidBox inference (counterpart of fdt/infer/pyramidbox.py:56-191).
+"""End-to-end PyramidBox inference for every variant (counterpart of
+fdt/infer/pyramidbox.py:56-191).
 
 uint8 BGR batch → mean subtraction → forward → softmax → decode → per-class
 top-5000 (nms_top_k) → greedy NMS (kernel K1 on the card) → [B, 2, top_k, 5], then a
@@ -8,7 +9,8 @@ semantics, including the [[0, 0, 0, 0, 0.4]] sentinel.
 Two precision modes: float32 (for parity; on the card, TF32 is the caller's
 choice through torch.backends) and bfloat16 with channels_last, the bench
 mode.  Priors are cached per (width, height), from the source shapes of the
-first forward at that size.
+first forward at that size (exact for try4/try5 too, whose maps break the
+ceil-halving rule; fdt takes them from an abstract trace).
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from fdt_torch.anchors import pyramid_face_priors
-from fdt_torch.config import PIXEL_MEAN_BGR, PYRAMID_REPO
+from fdt_torch.config import PIXEL_MEAN_BGR, PYRAMID_CONFIGS, PyramidConfig
 from fdt_torch.infer.detect import ssd_detect
 
 
@@ -54,18 +56,25 @@ def _resolve_device(device) -> torch.device:
 
 
 class PyramidBoxDetector:
-    """PyramidBox-ResNet50 ("repo" config) detector on one device.
+    """PyramidBox detector of any variant on one device.
 
     Args:
-      model: a PyramidBox with its weights loaded (moved to `device`).
+      model: the variant's model (fdt_torch.models.build_pyramidbox) with its
+        weights loaded (moved to `device`).
+      cfg: a PyramidConfig or its name ("repo", "try1" … "try5"): the priors,
+        the default thresholds and the NMS budget (detect.nms_top_k).
       dtype: torch.float32, or torch.bfloat16 (computed channels_last).
       device: None → "cuda" (raises if absent); "cpu" for the CPU.
+
+    `source_shapes[(width, height)]` holds the (f_width, f_height) of every
+    source map, recorded at the first forward at that size.
     """
 
-    def __init__(self, model, dtype: torch.dtype = torch.float32, device=None):
+    def __init__(self, model, cfg: PyramidConfig | str = "repo",
+                 dtype: torch.dtype = torch.float32, device=None):
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
-        self.cfg = PYRAMID_REPO
+        self.cfg = PYRAMID_CONFIGS[cfg] if isinstance(cfg, str) else cfg
         self.dtype = dtype
         self.device = _resolve_device(device)
         self.memory_format = (torch.channels_last if dtype == torch.bfloat16
@@ -75,10 +84,16 @@ class PyramidBoxDetector:
         self._mean = torch.tensor(PIXEL_MEAN_BGR, dtype=torch.float32,
                                   device=self.device)
         self._priors: dict[tuple[int, int], torch.Tensor] = {}
+        self.source_shapes: dict[tuple[int, int], tuple] = {}
 
     def _priors_for(self, width: int, height: int, source_shapes) -> torch.Tensor:
         priors = self._priors.get((width, height))
         if priors is None:
+            if len(source_shapes) != len(self.cfg.face_priors.strides):
+                raise ValueError(f"the model has {len(source_shapes)} source maps; "
+                                 f"config {self.cfg.name!r} has priors for "
+                                 f"{len(self.cfg.face_priors.strides)}")
+            self.source_shapes[(width, height)] = tuple(source_shapes)
             priors = self._priors[(width, height)] = torch.from_numpy(
                 pyramid_face_priors(self.cfg, source_shapes, width, height)
             ).to(self.device)

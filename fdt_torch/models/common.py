@@ -11,9 +11,9 @@ from torch import nn
 
 
 def conv(cin: int, cout: int, kernel: int, stride: int = 1, padding: int = 0,
-         *, bias: bool = True, dilation: int = 1) -> nn.Conv2d:
+         *, bias: bool = True, dilation: int = 1, groups: int = 1) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, kernel, stride, padding, dilation=dilation,
-                     bias=bias)
+                     groups=groups, bias=bias)
 
 
 def batch_norm(features: int) -> nn.BatchNorm2d:
@@ -24,6 +24,21 @@ def max_pool(x: torch.Tensor, kernel: int = 3, stride: int = 2,
              padding: int = 1) -> torch.Tensor:
     """MaxPool2d; torch pads with -inf, as fdt's max_pool does."""
     return F.max_pool2d(x, kernel, stride, padding)
+
+
+def crelu(x: torch.Tensor) -> torch.Tensor:
+    """Concatenated ReLU: relu(cat[x, -x]) along channels, x first."""
+    return F.relu(torch.cat([x, -x], dim=1))
+
+
+class ConvBNReLU(nn.Sequential):
+    """Sequential(Conv, BatchNorm, ReLU): children '0'/'1'/'2', as fdt's
+    ConvBNReLU and the reference's conv_bn_relu."""
+
+    def __init__(self, cin: int, features: int, kernel: int, stride: int = 1,
+                 padding: int = 0):
+        super().__init__(conv(cin, features, kernel, stride, padding),
+                         batch_norm(features), nn.ReLU())
 
 
 class SSHContext(nn.Module):
@@ -80,3 +95,32 @@ def max_in_out_conf(tmp_conf: torch.Tensor, first_source: bool) -> torch.Tensor:
         neg = tmp_conf[..., 0:1]
         pos = torch.amax(tmp_conf[..., 1:4], dim=-1, keepdim=True)
     return torch.cat([neg, pos], dim=-1)
+
+
+def add_pyramid_heads(model: nn.Module, n_sources: int, channels: int) -> None:
+    """Register the PyramidBox heads on `model`: face_conf / face_loc over
+    every source and the head-supervision branch head_loc / head_conf over
+    sources[1:].  The head branch only carries its parameters, so that a full
+    checkpoint loads strict: detection never computes it (fdt's compiled
+    graph drops it as dead code too)."""
+    model.face_conf = nn.ModuleList([conv(channels, 4, 3, 1, 1) for _ in range(n_sources)])
+    model.face_loc = nn.ModuleList([conv(channels, 4, 3, 1, 1) for _ in range(n_sources)])
+    model.head_loc = nn.ModuleList([conv(channels, 4, 3, 1, 1) for _ in range(n_sources - 1)])
+    model.head_conf = nn.ModuleList([conv(channels, 2, 3, 1, 1) for _ in range(n_sources - 1)])
+
+
+def face_outputs(model: nn.Module, sources) -> dict:
+    """The face heads of `model` over its source maps (max-in-out applied),
+    reshaped channels-last into prior-major [B, P, ·] float32 tensors, so that
+    prior order matches fdt's NHWC reshape, and the source shapes."""
+    b = sources[0].shape[0]
+    locs, confs = [], []
+    for i, s in enumerate(sources):
+        tmp_conf = model.face_conf[i](s).permute(0, 2, 3, 1)
+        confs.append(max_in_out_conf(tmp_conf, first_source=(i == 0)).reshape(b, -1, 2))
+        locs.append(model.face_loc[i](s).permute(0, 2, 3, 1).reshape(b, -1, 4))
+    return {
+        "face_loc": torch.cat(locs, 1).float(),
+        "face_conf": torch.cat(confs, 1).float(),
+        "source_shapes": tuple((s.shape[3], s.shape[2]) for s in sources),
+    }

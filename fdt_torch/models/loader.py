@@ -7,6 +7,7 @@ with `.` spelled `__` (fdt/models/torch_convert.py:37-52), so the conversion
 is mechanical:
 
   params/<mod>/kernel  [kH,kW,I,O] → <mod>.weight [O,I,kH,kW]
+                       (a depthwise [kH,kW,1,C] → [C,1,kH,kW])
   params/<mod>/bias               → <mod>.bias
   params/<mod>/scale              → <mod>.weight        (BatchNorm γ)
   batch_stats/<mod>/mean          → <mod>.running_mean
@@ -14,13 +15,17 @@ is mechanical:
   (and <mod>.num_batches_tracked = 0, which a strict load expects)
 
 Weights are converted in memory at load time; nothing converted is stored.
+Every PyramidBox variant and FaceBoxes load this way (fdt/models/loader.py:
+102-121 for the detector front doors).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
-from fdt_torch.models.pyramidbox import PyramidBox
+from fdt_torch.models.facebox import FaceBox
+from fdt_torch.models.pyramidbox_mobile import build_pyramidbox
 
 _LEAF_TO_TORCH = {
     "kernel": "weight",
@@ -73,9 +78,28 @@ def load_npz(path: str) -> dict:
     return out
 
 
-def load_pyramidbox(path: str) -> PyramidBox:
-    """A full-depth PyramidBox (eval mode, CPU, float32) with the weights of a
-    variables npz, loaded strict."""
-    model = PyramidBox()
+def _load_strict(model: nn.Module, path: str) -> nn.Module:
     model.load_state_dict(from_jax_variables(load_npz(path)), strict=True)
     return model.eval()
+
+
+def load_pyramidbox(path: str, variant: str = "repo") -> nn.Module:
+    """A full-depth PyramidBox of `variant` (eval mode, CPU, float32) with
+    the weights of a variables npz, loaded strict."""
+    return _load_strict(build_pyramidbox(variant), path)
+
+
+def load_pyramidbox_detector(variant: str, weights: str | None, **kw):
+    """A PyramidBoxDetector for any variant; torch's default initialisation
+    when `weights` is None (fdt's is flax's).  **kw go to the detector."""
+    from fdt_torch.infer.pyramidbox import PyramidBoxDetector
+    model = (load_pyramidbox(weights, variant) if weights
+             else build_pyramidbox(variant).eval())
+    return PyramidBoxDetector(model, variant, **kw)
+
+
+def load_facebox_detector(weights: str, **kw):
+    """A FaceBoxDetector with the weights of a variables npz, loaded strict.
+    **kw go to the detector."""
+    from fdt_torch.infer.facebox import FaceBoxDetector
+    return FaceBoxDetector(_load_strict(FaceBox(), weights), **kw)

@@ -1,11 +1,8 @@
 """PyramidBox (S3FD + LFPN + SSH context + max-in-out) with a ResNet50
 backbone (counterpart of fdt/models/pyramidbox.py:25-179).
 
-NCHW throughout; the face heads reshape channels-last into prior-major
-[B, P, ·] tensors, so prior order matches fdt's NHWC reshape.  The
-head-supervision branch (head_loc / head_conf) keeps its parameters, so that
-a full checkpoint loads strict, but detection never computes it: fdt's
-compiled graph drops it as dead code too.
+NCHW throughout; the heads are fdt_torch.models.common's add_pyramid_heads
+and face_outputs, shared with the mobile variants.
 """
 from __future__ import annotations
 
@@ -15,8 +12,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fdt_torch.models.common import (ContextTexture, SSHContext, batch_norm,
-                                     conv, max_in_out_conf, max_pool)
+from fdt_torch.models.common import (ContextTexture, SSHContext,
+                                     add_pyramid_heads, batch_norm, conv,
+                                     face_outputs, max_pool)
 
 
 class Bottleneck(nn.Module):
@@ -88,10 +86,7 @@ class PyramidBox(nn.Module):
         for name, cin in self._SSH_IN.items():
             self.add_module(name, SSHContext(cin, 256))
 
-        self.face_conf = nn.ModuleList([conv(512, 4, 3, 1, 1) for _ in range(6)])
-        self.face_loc = nn.ModuleList([conv(512, 4, 3, 1, 1) for _ in range(6)])
-        self.head_loc = nn.ModuleList([conv(512, 4, 3, 1, 1) for _ in range(5)])
-        self.head_conf = nn.ModuleList([conv(512, 2, 3, 1, 1) for _ in range(5)])
+        add_pyramid_heads(self, 6, 512)
 
     def forward(self, x: torch.Tensor) -> dict:
         c1 = max_pool(F.relu(self.bn1(self.conv1(x))), 3, 2, 1)
@@ -116,14 +111,4 @@ class PyramidBox(nn.Module):
                    self.conv4_SSH(c4_fuse), self.conv5_SSH(c5_lat),
                    self.conv6_SSH(c6_lat), self.conv7_SSH(c7_lat)]
 
-        b = x.shape[0]
-        locs, confs = [], []
-        for i, s in enumerate(sources):
-            tmp_conf = self.face_conf[i](s).permute(0, 2, 3, 1)
-            confs.append(max_in_out_conf(tmp_conf, first_source=(i == 0)).reshape(b, -1, 2))
-            locs.append(self.face_loc[i](s).permute(0, 2, 3, 1).reshape(b, -1, 4))
-        return {
-            "face_loc": torch.cat(locs, 1).float(),
-            "face_conf": torch.cat(confs, 1).float(),
-            "source_shapes": tuple((s.shape[3], s.shape[2]) for s in sources),
-        }
+        return face_outputs(self, sources)

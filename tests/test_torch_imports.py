@@ -46,7 +46,9 @@ def test_every_module_imports_without_building_kernels():
     import fdt_torch
     from fdt_torch.ops import _build
     names = [m.name for m in pkgutil.walk_packages(fdt_torch.__path__, "fdt_torch.")]
-    assert "fdt_torch.ops.nms" in names and "fdt_torch.apps.serving" in names
+    assert {"fdt_torch.ops.nms", "fdt_torch.apps.serving", "fdt_torch.infer.facebox",
+            "fdt_torch.models.facebox", "fdt_torch.models.pyramidbox_mobile",
+            "fdt_torch.anchors.densified"} <= set(names)
     for name in names:
         importlib.import_module(name)
     assert _build._lib is None
