@@ -10,17 +10,25 @@ Phases, each printing one line with its seconds:
                times one nvcc over all sources, the serial build, beside it.
   3. kernels — K1 (tiled greedy NMS) against its plain PyTorch version on the
                card, bit-equal keep masks (the first out_k keeps with out_k),
-               and its time beside the plain version's and its bound; then
-               K2 (the one-box-at-a-time loop) against its plain version and
-               K1, bit-equal, timed at FaceBoxes' and the flagship's shapes.
+               on 15 cases and on K1_EDGES; then, on K1_TIMED, its time a
+               call, each of its kernels' device time (torch.profiler), the
+               wrapper's host time and the pair tests it computes, beside the
+               plain version's time and the bound; then K2 (the
+               one-box-at-a-time loop) against its plain version and K1,
+               bit-equal, timed at FaceBoxes' and the flagship's shapes.
   4. flagship — PyramidBox-ResNet50 with net_weight/repo_mini.npz: a float32
-               frame against the golden the JAX package produced for it, then
+               frame against the golden the JAX package produced for it (the
+               float32 frames of every family are checked with the global
+               TF32 flags on: the detectors' default precision="highest"
+               turns TF32 off for the forward; the score drift of
+               precision="default" is printed beside), then
                the bf16 + channels_last detect at batch 8, 640², conf/nms
                0.35/0.35, budget 5000 (images/s from CUDA events), then one
                call at conf 0.01 so that all 5000 candidates enter NMS (K1 is
                checked and timed again on those boxes).
   5. facebox — FaceBoxes at 1024² on seeded weights: a float32 frame against
-               the JAX golden, images/s at batch 16 (TF32 on), and K2 through
+               the JAX golden, images/s at batch 16 (precision="default",
+               TF32 allowed, bench.py's mode), and K2 through
                nms_padded(impl="pallas") on that batch's own candidates,
                bit-equal to impl="pallas_tiled" (K1).
   6. variants — try3 and try1 with their trained npz files: a float32 frame
@@ -167,13 +175,20 @@ def _cuda_ms(fn, iters: int) -> float:
 
 @contextlib.contextmanager
 def _tf32(enabled: bool):
-    """TF32 for cuDNN convolutions and matmuls on or off, restored after."""
+    """The global TF32 flags of cuDNN convolutions and matmuls on or off,
+    restored after."""
     old = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = enabled
     try:
         yield
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def _score_diff(rows: np.ndarray, want: np.ndarray) -> float:
+    """Largest score difference over the first GOLDEN_ROWS rows of two
+    score-sorted [score, x1, y1, x2, y2] lists, position by position."""
+    return float(np.abs(rows[:GOLDEN_ROWS, 0] - want[:GOLDEN_ROWS, 0]).max())
 
 
 def _warm(fn, seconds: float = WARMUP_S) -> None:
@@ -226,72 +241,312 @@ def _mask_err(got: torch.Tensor, want: torch.Tensor, out_k) -> float:
     return float(diff.int().max())
 
 
-def _pairs_needed(boxes, valid, keep, thresh, mode="union", out_k=None) -> int:
+def _pairs_needed(boxes, valid, keep, thresh, mode="union", out_k=None, seg=None) -> int:
     """Pair tests the greedy walk needs on this data: each valid box is tested
-    against the kept boxes before it, in order, up to and including the first
-    that suppresses it.  With out_k the walk ends at each problem's out_k-th
-    keep (`keep` is the full mask), and the boxes after it need no test."""
+    against the kept boxes before it in its segment, in order, up to and
+    including the first that suppresses it.  With out_k the walk ends at each
+    problem's out_k-th keep (`keep` is the full mask), and the boxes after it
+    need no test."""
     from fdt_torch.geometry.nms import _overlap_matrix
 
     n = valid.shape[-1]
     idx = torch.arange(n, device=valid.device)
     later = idx[:, None] < idx[None, :]
     thresh = torch.tensor(thresh, dtype=torch.float32, device=valid.device)
+    segs = (torch.zeros_like(valid, dtype=torch.int32) if seg is None else seg).reshape(-1, n)
     total = 0
-    for b, v, k in zip(boxes.reshape(-1, n, 4), valid.reshape(-1, n), keep.reshape(-1, n)):
-        hits = (_overlap_matrix(b, mode) >= thresh) & k[:, None] & later  # [i, j]
+    for b, v, k, s in zip(boxes.reshape(-1, n, 4), valid.reshape(-1, n), keep.reshape(-1, n),
+                          segs):
+        before = k[:, None] & later & (s[:, None] == s[None, :])  # [j, i]: j kept, tested by i
+        hits = (_overlap_matrix(b, mode) >= thresh) & before
         suppressed = hits.any(dim=0)
-        kept_through = torch.cumsum(k.long(), dim=0)  # keeps among 0..i
-        kept_before = kept_through - k.long()
-        tests = torch.where(suppressed, kept_through[hits.int().argmax(dim=0)], kept_before)
+        through = torch.cumsum(before.int(), dim=0)  # [j, i]: tests of i among 0..j
+        tests = torch.where(suppressed, through.gather(0, hits.int().argmax(dim=0)[None])[0],
+                            through[-1])
         if out_k is not None:
-            v = v & (kept_before < out_k)
+            v = v & (torch.cumsum(k.long(), dim=0) - k.long() < out_k)
         total += int((tests * v).sum())
     return total
 
 
+# K1's edges: where its walk starts, ends or crosses a word (64 boxes) or a
+# chunk (words 0-7, 8-15, then 16 at a time) and its degenerate
+# inputs.  "at-<i>" names the box at which the out_k-th keep falls.
+K1_EDGES = ("out_k-at-127-word-end", "out_k-at-255-word-end", "out_k-at-511-chunk-end",
+            "out_k-at-1023-chunk-end", "out_k-at-2047-chunk-end", "out_k-at-300-mid-word",
+            "out_k-above-keeps",
+            "no-valid", "no-valid-out_k", "last-valid-only", "n1", "n63", "n64", "n65",
+            "n8192", "n8192-segments", "segments-across-chunks-union",
+            "segments-across-chunks-minimum", "degenerate-union", "degenerate-minimum",
+            "p1", "p16-out_k")
+
+
+def k1_edge_case(name: str):
+    """One case of K1_EDGES as numpy arrays: (boxes [P, N, 4] float32, valid
+    [P, N] bool, seg [P, N] int32 or None, mode, thresh, out_k or None)."""
+    from fdt_torch.geometry.nms import nms_keep_mask
+
+    def make(seed, p, n, spread, valid_frac=0.9):
+        rng = np.random.RandomState(seed)
+        centers = rng.rand(p, n, 2) * spread
+        wh = rng.rand(p, n, 2) * 3.0 + 0.5
+        boxes = np.concatenate([centers - wh / 2, centers + wh / 2], -1).astype(np.float32)
+        return boxes, rng.rand(p, n) < valid_frac, rng
+
+    if name.startswith("out_k-at-"):
+        # box i is valid and far from every other box, so it is kept: out_k is
+        # the number of keeps up to it, which no box after i can change
+        i = int(name.split("-")[2])
+        boxes, valid, _ = make(i, 1, max(1500, i + 500), 40.0)
+        boxes[0, i] = [1000, 1000, 1001, 1001]
+        valid[0, i] = True
+        prefix = nms_keep_mask(torch.from_numpy(boxes[:, :i + 1]),
+                               torch.from_numpy(valid[:, :i + 1]), 0.5)
+        return boxes, valid, None, "union", 0.5, int(prefix.sum())
+    if name == "out_k-above-keeps":
+        boxes, valid, _ = make(20, 2, 1000, 30.0)
+        return boxes, valid, None, "union", 0.5, 1005
+    if name.startswith("no-valid"):
+        boxes, valid, _ = make(21, 2, 500, 10.0)
+        return boxes, np.zeros_like(valid), None, "union", 0.5, (
+            10 if name.endswith("out_k") else None)
+    if name == "last-valid-only":
+        boxes, valid, _ = make(22, 2, 1000, 10.0)
+        valid[:] = False
+        valid[:, -1] = True
+        return boxes, valid, None, "union", 0.5, None
+    if name.startswith("n8192"):
+        boxes, valid, rng = make(23, 2, 8192, 120.0)
+        seg = (rng.rand(2, 8192) * 6).astype(np.int32) if name.endswith("segments") else None
+        return boxes, valid, seg, "union", 0.4, None
+    if name[0] == "n":
+        n = int(name[1:])
+        boxes, valid, _ = make(24 + n, 3, n, 4.0)
+        return boxes, valid, None, "union", 0.5, None
+    if name.startswith("segments-across-chunks"):
+        # runs of 200 boxes cycle over 3 segments, so every segment spans
+        # the chunk ends at 512, 1024 and 2048 boxes
+        boxes, valid, _ = make(25, 2, 3000, 12.0)
+        seg = np.broadcast_to((np.arange(3000) // 200 % 3).astype(np.int32), (2, 3000))
+        return boxes, valid, np.ascontiguousarray(seg), name.split("-")[-1], 0.4, None
+    if name.startswith("degenerate"):
+        # zero-area boxes (0/0 overlaps) and NaN coordinates suppress nothing
+        boxes, valid, _ = make(26, 2, 1200, 10.0)
+        boxes[:, ::7, 2:] = boxes[:, ::7, :2]
+        for k in range(4):
+            boxes[:, 3 + k::11 * 4, k] = np.nan
+        return boxes, valid, None, name.split("-")[-1], 0.3, None
+    if name == "p1":
+        boxes, valid, _ = make(27, 1, 2500, 60.0)
+        return boxes, valid, None, "union", 0.45, None
+    if name == "p16-out_k":
+        boxes, valid, _ = make(28, 16, 1000, 40.0)
+        return boxes, valid, None, "union", 0.5, 300
+    raise KeyError(name)
+
+
+# K1's timed cases: name →(seed, P, N, spread, mode, thresh, out_k, segmented).
+# The flagship's shape (P = 8 images × 1 class, budget 5000, top_k 750) and
+# FaceBoxes' (P = 16, budget 2048, out_k 750), each with and without out_k,
+# and the segmented problem of the CPU tests (N = 4500)
+K1_TIMED = {
+    "flagship-8x5000-k750": (9, BATCH, 5000, 300.0, "union", 0.35, 750, False),
+    "flagship-8x5000": (9, BATCH, 5000, 300.0, "union", 0.35, None, False),
+    "facebox-16x2048-k750": (12, FACEBOX_BATCH, 2048, 50.0, "union", 0.5, 750, False),
+    "facebox-16x2048": (12, FACEBOX_BATCH, 2048, 50.0, "union", 0.5, None, False),
+    "segmented-1x4500": (3, 1, 4500, 6.0, "union", 0.4, None, True),
+}
+
+
+def _device_split(fn, iters: int = 10):
+    """Device time of each `nms_*` CUDA kernel that fn() launches, from
+    torch.profiler: ({kernel: {"us": mean µs a call, "launches": a call}},
+    [[kernel, µs] of each launch of the last call, in order]).  Both empty
+    when the profiler records no device time."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    split, launches = {}, []
+    for event in prof.events():
+        name = re.search(r"nms_\w+_kernel", event.name)
+        if name and event.device_type == torch.autograd.DeviceType.CUDA:
+            us = event.time_range.elapsed_us()
+            launches.append((event.time_range.start, name.group(0), us))
+            entry = split.setdefault(name.group(0), {"us": 0.0, "launches": 0})
+            entry["us"] += us
+            entry["launches"] += 1
+    # the trace may miss an event at the start of the window: a kernel's
+    # launches a call are its events a call, rounded, and its time a call is
+    # their mean time that many times
+    for entry in split.values():
+        events = entry["launches"]
+        entry["launches"] = max(1, round(events / iters))
+        entry["us"] = entry["us"] / events * entry["launches"]
+    per_call = sum(entry["launches"] for entry in split.values())
+    last = sorted(launches)[-per_call:] if per_call else []
+    return split, [[name, us] for _, name, us in last]
+
+
+def k1_timings() -> dict:
+    """K1 at each timed case: `ms` by CUDA events over 20 back-to-back calls
+    (after 3), `host_ms` the wrapper's host time a call (20 calls enqueued
+    without a wait), `split` the device time of each of its kernels and
+    `device_ms` their sum (torch.profiler), and the bound from the pair tests
+    the greedy walk needs on this data."""
+    from fdt_torch.geometry.nms import nms_keep_mask
+    from fdt_torch.ops import nms as nms_op
+
+    out = {}
+    for name, (seed, p, n, spread, mode, thresh, out_k, segmented) in K1_TIMED.items():
+        boxes, valid, seg = _nms_case(seed, p, n, spread, segmented)
+
+        def call():
+            return nms_op.nms_keep_tiled(boxes, valid, thresh, mode=mode, seg_id=seg,
+                                         out_k=out_k)
+
+        full = nms_keep_mask(boxes, valid, thresh, mode=mode, seg_id=seg)
+        pairs = _pairs_needed(boxes, valid, full, thresh, mode, out_k, seg)
+        timed = _time_keep(call, pairs, valid)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            call()
+        host_ms = (time.perf_counter() - t0) / 20 * 1e3
+        torch.cuda.synchronize()
+        split, sequence = _device_split(call)
+        out[name] = {**timed, "host_ms": host_ms, "split": split, "sequence": sequence,
+                     "device_ms": sum(s["us"] for s in split.values()) / 1e3 if split else None,
+                     "keeps": full.sum(-1).tolist()}
+    return out
+
+
+def _pairs_computed(boxes, valid, keep, thresh, mode="union", out_k=None, seg=None) -> int:
+    """Pair tests K1's mask launches compute on this data (nms_tiled.cu; each
+    launch taken to see `removed` as it was before it).  For every chunk up
+    to the one where the walk ends (the out_k-th keep, or the last valid
+    box): each valid column of the chunk against the kept rows of each group
+    of earlier words that one block walks, STEP at a time, up to the step
+    holding the first that suppresses it; and each valid row of the chunk
+    against the valid columns after it in the chunk."""
+    from fdt_torch.geometry.nms import _overlap_matrix
+    from fdt_torch.ops._build import library
+
+    STEP = 4  # nms_tiled.cu's kStep
+
+    lib = library()
+    n = valid.shape[-1]
+    words = (n + 63) // 64
+    pad = words * 64 - n
+    thresh = torch.tensor(thresh, dtype=torch.float32, device=valid.device)
+    segs = (torch.zeros_like(valid, dtype=torch.int32) if seg is None else seg).reshape(-1, n)
+    total = 0
+    for b, v, k, s in zip(boxes.reshape(-1, n, 4), valid.reshape(-1, n), keep.reshape(-1, n),
+                          segs):
+        if not bool(v.any()):
+            continue
+        stop = int(torch.nonzero(v)[-1])
+        if out_k is not None and int(k.sum()) >= out_k:
+            stop = int(torch.nonzero(k)[out_k - 1])
+        hits = (_overlap_matrix(b, mode) >= thresh) & (s[:, None] == s[None, :]) & k[:, None]
+        hits = torch.nn.functional.pad(hits, (0, pad, 0, pad))
+        kp = torch.nn.functional.pad(k, (0, pad)).long()
+        vp = torch.nn.functional.pad(v, (0, pad))
+        c0 = 0
+        while c0 * 64 <= stop:
+            c1 = lib.fdt_nms_tiled_chunk_end(c0, words)
+            cols = vp[c0 * 64:c1 * 64]
+            group = lib.fdt_nms_tiled_cross_words(c0)
+            for u0 in range(0, c0, group):
+                found = torch.zeros_like(cols)
+                for u in range(u0, min(u0 + group, c0)):
+                    h = hits[u * 64:(u + 1) * 64, c0 * 64:c1 * 64]
+                    rank = torch.cumsum(kp[u * 64:(u + 1) * 64], 0)  # kept rows among 0..j
+                    # a column tests the kept rows of word u STEP at a time, up
+                    # to the step holding its first suppressor
+                    first = (rank[h.int().argmax(0)] + STEP - 1) // STEP * STEP
+                    tests = torch.where(h.any(0), first.clamp(max=rank[-1]), rank[-1])
+                    total += int((tests * (cols & ~found)).sum())
+                    found |= h.any(0)
+            later = torch.cumsum(cols.flip(0).long(), 0).flip(0) - cols.long()  # valid after
+            total += int((later * cols).sum())
+            c0 = c1
+    return total
+
+
+def _k1_line(name, split, sequence, **fields) -> None:
+    """One `[k1]` line: the fields, each kernel's device µs and launches a
+    call, and the device µs of each launch of one call, in order."""
+    print(f"[k1] {name} " + " ".join(f"{k}={v}" for k, v in fields.items()) + " "
+          + " ".join(f"{k}={v['us']:.2f}us/{v['launches']:g}" for k, v in split.items())
+          + " launches_us=" + ",".join(f"{k[4:-7]}:{us:.1f}" for k, us in sequence), flush=True)
+
+
 def phase_kernels(device):
-    """K1 against its plain version on the cases of the CPU tests and at
-    FaceBoxes' shape with its out_k, then timed at the flagship's shapes."""
+    """K1 against its plain version, bit-equal keep masks (the first out_k
+    keeps with out_k), on the cases of the CPU tests, at FaceBoxes' and the
+    flagship's shapes, and on its edges (K1_EDGES); then timed on
+    K1_TIMED."""
     from fdt_torch.geometry.nms import nms_keep_mask
     from fdt_torch.ops import nms as nms_op
 
     t0 = time.perf_counter()
-    cases = []  # seed, P, N, spread, mode, thresh, out_k, segmented
+    cases = []  # name, boxes, valid, seg, mode, thresh, out_k
+    specs = []  # seed, P, N, spread, mode, thresh, out_k, segmented
     for seed in (0, 1, 2):
         for mode in ("union", "minimum"):
-            cases.append((seed, 1, 300, 4.0, mode, 0.5, None, False))
+            specs.append((seed, 1, 300, 4.0, mode, 0.5, None, False))
     for out_k in (16, 100, 750):
-        cases.append((7, 1, 1500, 100.0, "union", 0.5, out_k, False))
-    cases.append((3, 1, 2048, 50.0, "union", 0.45, 128, False))
+        specs.append((7, 1, 1500, 100.0, "union", 0.5, out_k, False))
+    specs.append((3, 1, 2048, 50.0, "union", 0.45, 128, False))
     for mode in ("union", "minimum"):
-        cases.append((3, 1, 4500, 6.0, mode, 0.4, None, True))
-    cases.append((11, 1, 1000, 30.0, "union", 0.4, None, False))
-    cases.append((12, FACEBOX_BATCH, 2048, 50.0, "union", 0.5, 750, False))  # FaceBoxes
-    flagship = (9, BATCH, 5000, 300.0, "union", 0.35, 750, False)
-    cases.append(flagship)
-    max_err = 0.0
-    for seed, p, n, spread, mode, thresh, out_k, segmented in cases:
+        specs.append((3, 1, 4500, 6.0, mode, 0.4, None, True))
+    specs.append((11, 1, 1000, 30.0, "union", 0.4, None, False))
+    specs.append((12, FACEBOX_BATCH, 2048, 50.0, "union", 0.5, 750, False))  # FaceBoxes
+    specs.append((9, BATCH, 5000, 300.0, "union", 0.35, 750, False))  # the flagship
+    for seed, p, n, spread, mode, thresh, out_k, segmented in specs:
         boxes, valid, seg = _nms_case(seed, p, n, spread, segmented)
+        cases.append((f"{p}x{n}-{mode}-seed{seed}-out_k{out_k}-seg{segmented}",
+                      boxes, valid, seg, mode, thresh, out_k))
+    for name in K1_EDGES:
+        boxes, valid, seg, mode, thresh, out_k = k1_edge_case(name)
+        cases.append((name, *(None if a is None else torch.from_numpy(a).to(device)
+                              for a in (boxes, valid, seg)), mode, thresh, out_k))
+    max_err = 0.0
+    for name, boxes, valid, seg, mode, thresh, out_k in cases:
         got = nms_op.nms_keep_tiled(boxes, valid, thresh, mode=mode, seg_id=seg,
                                     out_k=out_k)
         want = nms_keep_mask(boxes, valid, thresh, mode=mode, seg_id=seg)
         err = _mask_err(got, want, out_k)
-        if err != 0:
-            raise AssertionError(f"K1 != plain: P={p} N={n} mode={mode} "
-                                 f"out_k={out_k} seg={segmented}")
+        if err != 0 or (out_k is not None and int(got.sum(-1).max()) > out_k):
+            raise AssertionError(f"K1 != plain: case {name}")
         max_err = max(max_err, err)
 
-    seed, p, n, spread, mode, thresh, out_k, _ = flagship
+    timed = k1_timings()
+    for name, (seed, p, n, spread, mode, thresh, out_k, segmented) in K1_TIMED.items():
+        boxes, valid, seg = _nms_case(seed, p, n, spread, segmented)
+        full = nms_keep_mask(boxes, valid, thresh, mode=mode, seg_id=seg)
+        timed[name]["pairs_computed"] = _pairs_computed(boxes, valid, full, thresh, mode,
+                                                        out_k, seg)
+    flagship = timed["flagship-8x5000-k750"]
+    seed, p, n, spread, mode, thresh, out_k, _ = K1_TIMED["flagship-8x5000-k750"]
     boxes, valid, _ = _nms_case(seed, p, n, spread, False)
-    full = nms_keep_mask(boxes, valid, thresh)
-    timed = _time_keep(lambda: nms_op.nms_keep_tiled(boxes, valid, thresh, out_k=out_k),
-                       _pairs_needed(boxes, valid, full, thresh, out_k=out_k), valid)
     plain_ms = _cuda_ms(lambda: nms_keep_mask(boxes, valid, thresh), 2)
-    _phase("kernels", t0, cases=len(cases), k1_ms=f"{timed['ms']:.4f}",
-           plain_ms=f"{plain_ms:.4f}", bound_ms=f"{timed['bound_ms']:.6f}",
-           pairs=timed["pairs"], bytes=timed["bytes"], keeps=full.sum(-1).tolist())
-    return {**timed, "plain_ms": plain_ms, "max_abs_err": max_err}
+    _phase("kernels", t0, cases=len(cases), edges=len(K1_EDGES), k1_ms=f"{flagship['ms']:.4f}",
+           plain_ms=f"{plain_ms:.4f}", bound_ms=f"{flagship['bound_ms']:.6f}",
+           keeps=flagship["keeps"])
+    for name, t in timed.items():
+        _k1_line(name, t["split"], t["sequence"], ms=f"{t['ms']:.4f}",
+                 device_ms="not_measured" if t["device_ms"] is None else f"{t['device_ms']:.4f}",
+                 host_ms=f"{t['host_ms']:.4f}", bound_ms=f"{t['bound_ms']:.6f}",
+                 pairs_needed=t["pairs"], pairs_computed=t["pairs_computed"])
+    return {**flagship, "plain_ms": plain_ms, "max_abs_err": max_err, "timed": timed}
 
 
 def _time_keep(fn, pairs, valid) -> dict:
@@ -382,15 +637,17 @@ def phase_flagship(device):
     frame = golden_frame(seed, h, w)
     if hashlib.sha256(frame.tobytes()).hexdigest() != str(g["frame_sha256"]):
         raise AssertionError("the seeded frame differs from the golden's")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    det32 = PyramidBoxDetector(load_pyramidbox(str(WEIGHTS)), device=device)
-    out = det32.detect_tensor(frame[None], conf_thresh=float(g["conf_thresh"]),
-                              nms_thresh=float(g["nms_thresh"]))
-    rows = out[0, 1]
+    model = load_pyramidbox(str(WEIGHTS))
+    det32 = PyramidBoxDetector(model, device=device)  # precision="highest"
+    threshs = dict(conf_thresh=float(g["conf_thresh"]), nms_thresh=float(g["nms_thresh"]))
+    with _tf32(True):  # the global flags on: the detector turns TF32 off itself
+        rows = det32.detect_tensor(frame[None], **threshs)[0, 1]
+        tf32_rows = PyramidBoxDetector(model, device=device, precision="default").detect_tensor(
+            frame[None], **threshs)[0, 1]
     err = match_rows(rows, g["rows"], GOLDEN_ROWS, GOLDEN_TOL)
     _phase("flagship_f32", t0, size=f"{w}x{h}", count=int((rows[:, 0] > 0).sum()),
-           golden_count=int(g["count"]), max_abs_err=f"{err:.3g}")
+           golden_count=int(g["count"]), max_abs_err=f"{err:.3g}",
+           tf32_scores_max_abs_diff=f"{_score_diff(tf32_rows, g['rows']):.3g}")
 
     t0 = time.perf_counter()
     det = PyramidBoxDetector(load_pyramidbox(str(WEIGHTS)), dtype=torch.bfloat16,
@@ -426,11 +683,19 @@ def phase_flagship(device):
     if not np.isfinite(dense).all() or dense_count.min() < 1:
         raise AssertionError(f"conf 0.01 run: counts {dense_count.tolist()}")
     boxes, valid, thresh = captured["args"]
-    boxes_err = _mask_err(kernel(*captured["args"], **captured["kwargs"]),
-                          nms_keep_mask(boxes, valid, thresh), captured["kwargs"]["out_k"])
+    out_k = captured["kwargs"]["out_k"]
+    full = nms_keep_mask(boxes, valid, thresh)
+    boxes_err = _mask_err(kernel(*captured["args"], **captured["kwargs"]), full, out_k)
     if boxes_err != 0:
         raise AssertionError("K1 != plain on the flagship's boxes")
     real_ms = _cuda_ms(lambda: kernel(*captured["args"], **captured["kwargs"]), 20)
+    split, sequence = _device_split(lambda: kernel(*captured["args"], **captured["kwargs"]))
+    # where each problem's walk ends: the box of its out_k-th keep
+    ends = [int(torch.nonzero(k)[min(out_k, int(k.sum())) - 1])
+            for k in full.reshape(-1, full.shape[-1])]
+    _k1_line("flagship-own-boxes", split, sequence, ms=f"{real_ms:.4f}", walk_ends=ends,
+             pairs_needed=_pairs_needed(boxes, valid, full, thresh, out_k=out_k),
+             pairs_computed=_pairs_computed(boxes, valid, full, thresh, out_k=out_k))
     _phase("flagship_bf16", t0, batch=BATCH, images_per_s=f"{max(rates):.2f}",
            rates=[round(r, 2) for r in rates], spread_pct=f"{spread:.2f}",
            k1_launches=launches, count_035=(out[:, 1, :, 0] > 0).sum(axis=1).tolist(),
@@ -444,9 +709,10 @@ def _spread(rates) -> float:
 
 
 def phase_facebox(device):
-    """FaceBoxes at 1024² on seeded weights: a float32 frame (TF32 off)
-    against fdt's golden, images/s at batch 16 (TF32 on, bench.py's
-    precision="default"), then this slice's path: the detect (K1 through
+    """FaceBoxes at 1024² on seeded weights: a float32 frame (the default
+    precision="highest") against fdt's golden, images/s at batch 16
+    (precision="default", TF32 allowed, bench.py's mode), then this slice's
+    path: the detect (K1 through
     nms_padded's "auto") and, on that batch's own candidates,
     nms_padded(impl="pallas") (K2) against impl="pallas_tiled" (K1)."""
     from fdt_torch.geometry.nms import nms_padded
@@ -463,38 +729,41 @@ def phase_facebox(device):
     model = FaceBox()
     model.load_state_dict(from_jax_variables(
         seeded_variables(model, int(g["weights_seed"]))), strict=True)
-    det = FaceBoxDetector(model, device=device)
-    with _tf32(False):
+    det = FaceBoxDetector(model, device=device)  # precision="highest"
+    fast = FaceBoxDetector(model, device=device, precision="default")  # bench.py's
+    with _tf32(True):  # the global flags on: the detector turns TF32 off itself
         (boxes, scores), = det.detect_batch(frame[None])
+        (tf32_boxes, tf32_scores), = fast.detect_batch(frame[None])
     err = match_rows(np.column_stack([scores, boxes]), g["rows"], GOLDEN_ROWS, GOLDEN_TOL)
+    tf32_diff = _score_diff(np.column_stack([tf32_scores, tf32_boxes]), g["rows"])
     _phase("facebox_f32", t0, size=f"{size}x{size}", count=len(scores),
-           golden_count=int(g["count"]), max_abs_err=f"{err:.3g}")
+           golden_count=int(g["count"]), max_abs_err=f"{err:.3g}",
+           tf32_scores_max_abs_diff=f"{tf32_diff:.3g}")
 
     t0 = time.perf_counter()
     frames = np.random.RandomState(3).randint(0, 256, (FACEBOX_BATCH, size, size, 3),
                                               dtype=np.uint8)
     staged = torch.from_numpy(frames).to(device)
-    cfg = det.cfg
-    with _tf32(True):
-        _warm(lambda: det.detect_device(staged))
-        rates = _rates(lambda: det.detect_device(staged), FACEBOX_BATCH)
-        cand_boxes, probs = det.candidates(staged)
-        valid = probs > cfg.conf_thresh
-        nms = {impl: lambda impl=impl: nms_padded(
-            cand_boxes, probs, cfg.nms_thresh, budget=det.budget, out_k=det.out_k,
-            valid=valid, impl=impl) for impl in ("pallas", "pallas_tiled")}
-        nms_op.launches.reset()
-        nms_op.greedy_launches.reset()
-        out = det.detect_device(staged)              # this slice's path
-        idx2, count2 = nms["pallas"]()
-        idx1, count1 = nms["pallas_tiled"]()
-        k1_launches, k2_launches = nms_op.launches.count, nms_op.greedy_launches.count
-        nms_ms = {impl: _cuda_ms(fn, 20) for impl, fn in nms.items()}
+    cfg = fast.cfg
+    _warm(lambda: fast.detect_device(staged))
+    rates = _rates(lambda: fast.detect_device(staged), FACEBOX_BATCH)
+    cand_boxes, probs = fast.candidates(staged)
+    valid = probs > cfg.conf_thresh
+    nms = {impl: lambda impl=impl: nms_padded(
+        cand_boxes, probs, cfg.nms_thresh, budget=fast.budget, out_k=fast.out_k,
+        valid=valid, impl=impl) for impl in ("pallas", "pallas_tiled")}
+    nms_op.launches.reset()
+    nms_op.greedy_launches.reset()
+    out = fast.detect_device(staged)             # this slice's path
+    idx2, count2 = nms["pallas"]()
+    idx1, count1 = nms["pallas_tiled"]()
+    k1_launches, k2_launches = nms_op.launches.count, nms_op.greedy_launches.count
+    nms_ms = {impl: _cuda_ms(fn, 20) for impl, fn in nms.items()}
     if k2_launches != 1 or k1_launches != 2:
         raise AssertionError(f"FaceBoxes path: {k1_launches} K1 and {k2_launches} K2 "
                              "launches (want 2 and 1)")
     count = out[2]
-    if (out[0].shape != (FACEBOX_BATCH, det.out_k, 4) or not torch.isfinite(out[0]).all()
+    if (out[0].shape != (FACEBOX_BATCH, fast.out_k, 4) or not torch.isfinite(out[0]).all()
             or not torch.equal(count, count1)):
         raise AssertionError("bad FaceBoxes output")
     if not (torch.equal(count1, count2) and all(
@@ -528,7 +797,7 @@ def phase_variants(device):
             raise AssertionError(f"the seeded frame differs from the {variant} golden's")
         model = load_pyramidbox(str(REPO / weights), variant)
         det = PyramidBoxDetector(model, variant, device=device)
-        with _tf32(False):
+        with _tf32(True):  # the global flags on: the detector turns TF32 off itself
             rows = det.detect_tensor(frame[None], VARIANT_CONF, VARIANT_NMS)[0, 1]
         err = match_rows(rows, g["rows"], GOLDEN_ROWS, GOLDEN_TOL)
         shapes = tuple(map(tuple, g["source_shapes"].tolist()))
@@ -728,7 +997,8 @@ def main() -> int:
         "replaces": "fdt/ops/pallas_nms.py:69",
         "launches": launches, "max_abs_err": max(k1["max_abs_err"], boxes_err),
         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
-        "bound_by": k1["bound_by"], "library_ms": None}, {
+        "bound_by": k1["bound_by"], "library_ms": None,
+        "device_ms": k1["device_ms"], "host_ms": k1["host_ms"]}, {
         "name": "nms_greedy (K2)", "route": "cuda",
         "source": "fdt_torch/csrc/nms_greedy.cu",
         "replaces": "fdt/ops/pallas_nms.py:31",

@@ -39,4 +39,13 @@ __device__ __forceinline__ bool suppresses(const float4 a, float area_a,
   return __fdiv_rn(inter, denom) >= thresh;
 }
 
+// Whether a and b overlap in both axes by a positive amount, by the first
+// operations of suppresses().  When they do not, the ratio there is 0, -0 or
+// NaN, so suppresses() is false for every thresh > 0 and a caller may skip
+// its division.
+__device__ __forceinline__ bool intersects(const float4 a, const float4 b) {
+  return __fsub_rn(min_nan(a.z, b.z), max_nan(a.x, b.x)) > 0.0f &&
+         __fsub_rn(min_nan(a.w, b.w), max_nan(a.y, b.y)) > 0.0f;
+}
+
 }  // namespace

@@ -7,8 +7,9 @@ forward → softmax → decode against the densified default boxes → per image
 so a call makes one NMS launch (kernel K1 on the card, by nms_padded's
 "auto").
 
-Two precision modes, as PyramidBoxDetector: float32 (on the card, TF32 is the
-caller's choice through torch.backends) and bfloat16 with channels_last.
+Two compute types, as PyramidBoxDetector: float32 and bfloat16 with
+channels_last; `precision` "highest" (the default, TF32 off for the forward)
+or "default" (TF32 allowed), as fdt's.
 fdt's stem_impl="s2d" is a TPU rearrangement of the same RDCL convs, so the
 port runs the direct convs; `quant` and `mesh` are not ported.
 """
@@ -22,7 +23,7 @@ from fdt_torch.anchors import facebox_default_boxes
 from fdt_torch.config import FACEBOX, FaceBoxConfig
 from fdt_torch.geometry.boxes import decode
 from fdt_torch.geometry.nms import nms_padded
-from fdt_torch.infer.pyramidbox import _resolve_device
+from fdt_torch.infer.pyramidbox import _check_precision, _resolve_device, tf32_for
 
 
 class FaceBoxDetector:
@@ -35,12 +36,16 @@ class FaceBoxDetector:
       budget: boxes entering NMS; out_k: detections kept per image.
       dtype: torch.float32, or torch.bfloat16 (computed channels_last).
       device: None → "cuda" (raises if absent); "cpu" for the CPU.
+      precision: "highest" (TF32 off for the forward) or "default" (TF32
+        allowed), as fdt's detector.
     """
 
     def __init__(self, model, cfg: FaceBoxConfig = FACEBOX, budget: int = 2048,
-                 out_k: int = 750, dtype: torch.dtype = torch.float32, device=None):
+                 out_k: int = 750, dtype: torch.dtype = torch.float32, device=None,
+                 precision: str = "highest"):
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
+        self.precision = _check_precision(precision)
         self.cfg = cfg
         self.budget = budget
         self.out_k = out_k
@@ -65,7 +70,8 @@ class FaceBoxDetector:
         x = images_u8.to(self.device, non_blocking=True).float() / 255.0
         x = x.permute(0, 3, 1, 2).to(self.dtype).contiguous(
             memory_format=self.memory_format)
-        loc, conf = self.model(x)
+        with tf32_for(self.precision):
+            loc, conf = self.model(x)
         probs = F.softmax(conf, dim=-1)[..., 1]
         return decode(loc, self._default_boxes, self.cfg.variance), probs
 

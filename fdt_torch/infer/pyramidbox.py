@@ -6,14 +6,16 @@ top-5000 (nms_top_k) → greedy NMS (kernel K1 on the card) → [B, 2, top_k, 5]
 host row walk that reproduces the reference's `while score >= threshold`
 semantics, including the [[0, 0, 0, 0, 0.4]] sentinel.
 
-Two precision modes: float32 (for parity; on the card, TF32 is the caller's
-choice through torch.backends) and bfloat16 with channels_last, the bench
-mode.  Priors are cached per (width, height), from the source shapes of the
+Two compute types: float32 (for parity) and bfloat16 with channels_last, the
+bench mode.  `precision` is fdt's: "highest" (the default) turns TF32 off for
+the forward, as fdt's precision="highest" keeps full float32; "default"
+allows it.  Priors are cached per (width, height), from the source shapes of the
 first forward at that size (exact for try4/try5 too, whose maps break the
 ceil-halving rule; fdt takes them from an abstract trace).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -46,6 +48,30 @@ def detections_to_rows(det: np.ndarray, threshold: float, scale) -> np.ndarray:
     return np.concatenate(rows, axis=0)
 
 
+# fdt's precision values → whether the forward may use TF32 on the card
+PRECISIONS = {"highest": False, "default": True}
+
+
+def _check_precision(precision: str) -> str:
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}; expected one of "
+                         f"{tuple(PRECISIONS)}")
+    return precision
+
+
+@contextlib.contextmanager
+def tf32_for(precision: str):
+    """TF32 for cuDNN convolutions and matmuls as `precision` says, for the
+    body only: the global torch.backends flags are restored after."""
+    old = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    allowed = PRECISIONS[precision]
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = allowed
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
+
+
 def _resolve_device(device) -> torch.device:
     """`None` means the CUDA card; raise if there is none."""
     device = torch.device("cuda" if device is None else device)
@@ -65,15 +91,19 @@ class PyramidBoxDetector:
         the default thresholds and the NMS budget (detect.nms_top_k).
       dtype: torch.float32, or torch.bfloat16 (computed channels_last).
       device: None → "cuda" (raises if absent); "cpu" for the CPU.
+      precision: "highest" (TF32 off for the forward) or "default" (TF32
+        allowed), as fdt's detector.
 
     `source_shapes[(width, height)]` holds the (f_width, f_height) of every
     source map, recorded at the first forward at that size.
     """
 
     def __init__(self, model, cfg: PyramidConfig | str = "repo",
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None,
+                 precision: str = "highest"):
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
+        self.precision = _check_precision(precision)
         self.cfg = PYRAMID_CONFIGS[cfg] if isinstance(cfg, str) else cfg
         self.dtype = dtype
         self.device = _resolve_device(device)
@@ -115,7 +145,8 @@ class PyramidBoxDetector:
         x = images_u8.to(self.device, non_blocking=True).float() - self._mean
         x = x.permute(0, 3, 1, 2).to(self.dtype).contiguous(
             memory_format=self.memory_format)
-        out = self.model(x)
+        with tf32_for(self.precision):
+            out = self.model(x)
         priors = self._priors_for(w, h, out["source_shapes"])
         conf = F.softmax(out["face_conf"], dim=-1)
         return ssd_detect(out["face_loc"], conf, priors, dcfg)

@@ -26,12 +26,18 @@ BUILD_TIMEOUT_S = 300
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# C functions of the library: name → argument types (every one returns int,
-# a CUDA error code)
+# C functions of the library: name → argument types (every one returns int:
+# a CUDA error code, or the count its name says)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
-    # boxes, valid, seg, mask, keep, p, n, thresh, minimum_mode, out_k, stream
+    # boxes, valid, seg, scratch, keep, p, n, thresh, minimum_mode, out_k, stream
     "fdt_nms_tiled": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
+    # n → int64 words of scratch a problem of n boxes needs
+    "fdt_nms_tiled_scratch_words": [_I],
+    # chunk start word, words → the chunk's end word
+    "fdt_nms_tiled_chunk_end": [_I, _I],
+    # chunk start word → row words of earlier chunks a mask block walks
+    "fdt_nms_tiled_cross_words": [_I],
     # boxes, valid, keep, p, n, thresh, minimum_mode, stream
     "fdt_nms_greedy": [_P, _P, _P, _I, _I, _F, _I, _P],
 }

@@ -12,6 +12,7 @@ kernel or raises.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -19,7 +20,7 @@ import torch
 from fdt_torch.geometry.nms import nms_keep_mask
 
 _MODES = {"union": 0, "minimum": 1}
-_MAX_WORDS = 6144  # K1's removed-bitmask in 48 KB of shared memory
+_MAX_WORDS = 65535  # K1: words of 64 boxes; keeps the mask launch's grid.y in range
 _GREEDY_MAX_BOXES = 8192  # K2 stages 21 bytes a box in shared memory: 168 KB
 
 
@@ -90,6 +91,14 @@ def nms_keep_tiled(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
     return _launch_tiled(boxes, valid, iou_thresh, mode, seg_id, out_k)
 
 
+@functools.lru_cache(maxsize=64)
+def _scratch_words(n: int) -> int:
+    """int64 words of K1's scratch for one problem of n boxes."""
+    from fdt_torch.ops._build import library
+
+    return library().fdt_nms_tiled_scratch_words(n)
+
+
 def _launch_tiled(boxes, valid, iou_thresh, mode, seg_id, out_k):
     from fdt_torch.ops._build import library
 
@@ -97,7 +106,7 @@ def _launch_tiled(boxes, valid, iou_thresh, mode, seg_id, out_k):
     n = boxes.shape[-2]
     p = math.prod(boxes.shape[:-2])
     words = (n + 63) // 64
-    if words > _MAX_WORDS or p > 65535:  # shared-memory bitmask; grid.z
+    if words > _MAX_WORDS or p > 65535:  # grid.y and grid.z of the mask launch
         raise ValueError(f"problem too large for the kernel: P={p}, N={n}")
     seg_ptr = None
     if seg_id is not None:
@@ -107,11 +116,11 @@ def _launch_tiled(boxes, valid, iou_thresh, mode, seg_id, out_k):
                              "device of boxes")
         seg_ptr = seg_id.data_ptr()
     keep = torch.empty(valid.shape, dtype=torch.uint8, device=boxes.device)
-    mask = torch.empty((p, n, words), dtype=torch.int64, device=boxes.device)
+    scratch = torch.empty((p, _scratch_words(n)), dtype=torch.int64, device=boxes.device)
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream(boxes.device).cuda_stream
         err = library().fdt_nms_tiled(
-            boxes.data_ptr(), valid.data_ptr(), seg_ptr, mask.data_ptr(),
+            boxes.data_ptr(), valid.data_ptr(), seg_ptr, scratch.data_ptr(),
             keep.data_ptr(), p, n, float(iou_thresh), _MODES[mode],
             0 if out_k is None else int(out_k), stream)
     if err != 0:

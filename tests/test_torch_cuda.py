@@ -7,12 +7,20 @@ has neither (tests/conftest.py imports jax, hence --noconftest):
 
 Where there is no card every test skips.
 """
+import hashlib
+import pathlib
+import sys
+
 import numpy as np
 import pytest
 import torch
 
-from fdt_torch.geometry import nms
-from fdt_torch.ops import nms as nms_op
+REPO = pathlib.Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+
+import chip_smoke  # noqa: E402
+from fdt_torch.geometry import nms  # noqa: E402
+from fdt_torch.ops import nms as nms_op  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
@@ -70,6 +78,12 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(card):
         nms_op.nms_keep_tiled(boxes.transpose(0, 1).contiguous().transpose(0, 1), valid, 0.5)
     with pytest.raises(ValueError, match="int32"):
         nms_op.nms_keep_tiled(boxes, valid, 0.5, seg_id=torch.zeros(2, 10, device=card))
+    # past the kernel's limits: more than 65535 words of 64 boxes, more than
+    # 65535 problems (grid.z of the mask launch)
+    for p, n in ((1, 64 * nms_op._MAX_WORDS + 1), (65536, 1)):
+        with pytest.raises(ValueError, match="too large"):
+            nms_op.nms_keep_tiled(torch.zeros(p, n, 4, device=card),
+                                  torch.ones(p, n, dtype=torch.bool, device=card), 0.5)
 
 
 @pytest.mark.parametrize("mode", ["union", "minimum"])
@@ -112,3 +126,57 @@ def test_greedy_wrapper_rejects_more_boxes_than_shared_memory_holds(card):
     boxes = torch.zeros(1, 8193, 4, device=card)
     with pytest.raises(ValueError, match="too large"):
         nms_op.nms_keep_greedy(boxes, torch.ones(1, 8193, dtype=torch.bool, device=card), 0.5)
+
+
+@pytest.mark.parametrize("name", chip_smoke.K1_EDGES)
+def test_kernel_bit_equal_to_plain_at_the_walks_edges(card, name):
+    """K1 on chip_smoke.K1_EDGES: out_k at a word end, at chunk ends, in the
+    middle of a word and above the keeps; no valid box; one at the last
+    index; N = 1, 63, 64, 65 and 8192; segments across chunks; zero-area and
+    NaN boxes; P = 1 and 16."""
+    boxes, valid, seg, mode, thresh, out_k = (
+        torch.from_numpy(a).to(card) if isinstance(a, np.ndarray) else a
+        for a in chip_smoke.k1_edge_case(name))
+    before = nms_op.launches.count
+    got = nms_op.nms_keep_tiled(boxes, valid, thresh, mode=mode, seg_id=seg, out_k=out_k)
+    assert nms_op.launches.count == before + 1
+    want = nms.nms_keep_mask(boxes, valid, thresh, mode=mode, seg_id=seg)
+    assert chip_smoke._mask_err(got, want, out_k) == 0.0
+    if out_k is not None:  # entries past the out_k-th keep read 0
+        assert int(got.sum(-1).max()) <= out_k
+
+
+@pytest.fixture
+def tf32_flags_on():
+    """The global TF32 flags on, as torch leaves cuDNN's by default."""
+    old = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    yield
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
+
+
+@pytest.mark.parametrize("family", ["flagship", "facebox"])
+def test_float32_detector_matches_golden_with_the_global_tf32_flags_on(card, tf32_flags_on,
+                                                                       family):
+    """The default precision="highest" turns TF32 off for the forward, as
+    fdt's detectors compute in full float32, and restores the flags."""
+    from fdt_torch.infer import FaceBoxDetector, PyramidBoxDetector
+    from fdt_torch.models import FaceBox, from_jax_variables, load_pyramidbox
+
+    if family == "flagship":
+        g = np.load(chip_smoke.GOLDEN)
+        frame = chip_smoke.golden_frame(int(g["seed"]), int(g["height"]), int(g["width"]))
+        det = PyramidBoxDetector(load_pyramidbox(str(chip_smoke.WEIGHTS)), device=card)
+        rows = det.detect_tensor(frame[None], float(g["conf_thresh"]),
+                                 float(g["nms_thresh"]))[0, 1]
+    else:
+        g = np.load(chip_smoke.FACEBOX_GOLDEN)
+        frame = chip_smoke.golden_frame(int(g["frame_seed"]), int(g["size"]), int(g["size"]))
+        model = FaceBox()
+        model.load_state_dict(from_jax_variables(
+            chip_smoke.seeded_variables(model, int(g["weights_seed"]))), strict=True)
+        (boxes, scores), = FaceBoxDetector(model, device=card).detect_batch(frame[None])
+        rows = np.column_stack([scores, boxes])
+    assert hashlib.sha256(frame.tobytes()).hexdigest() == str(g["frame_sha256"])
+    chip_smoke.match_rows(rows, g["rows"], chip_smoke.GOLDEN_ROWS, chip_smoke.GOLDEN_TOL)
+    assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
