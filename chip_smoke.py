@@ -14,8 +14,11 @@ Phases, each printing one line with its seconds:
                call, each of its kernels' device time (torch.profiler), the
                wrapper's host time and the pair tests it computes, beside the
                plain version's time and the bound; then K2 (the
-               one-box-at-a-time loop) against its plain version and K1,
-               bit-equal, timed at FaceBoxes' and the flagship's shapes.
+               one-box-at-a-time loop, a cluster of blocks a problem)
+               against its plain version and K1, bit-equal, on 14 cases and
+               on K2_EDGES, and on K2_TIMED (FaceBoxes' and the flagship's
+               shapes) the same measures as K1's, its cluster size and the
+               clusters the card runs at once.
   4. flagship — PyramidBox-ResNet50 with net_weight/repo_mini.npz: a float32
                frame against the golden the JAX package produced for it (the
                float32 frames of every family are checked with the global
@@ -269,6 +272,25 @@ def _pairs_needed(boxes, valid, keep, thresh, mode="union", out_k=None, seg=None
     return total
 
 
+def _edge_boxes(seed, p, n, spread, valid_frac=0.9):
+    """Seeded boxes [P, N, 4] (centres within `spread`, sides 0.5-3.5), a valid
+    mask with `valid_frac` of them set, and the generator."""
+    rng = np.random.RandomState(seed)
+    centers = rng.rand(p, n, 2) * spread
+    wh = rng.rand(p, n, 2) * 3.0 + 0.5
+    boxes = np.concatenate([centers - wh / 2, centers + wh / 2], -1).astype(np.float32)
+    return boxes, rng.rand(p, n) < valid_frac, rng
+
+
+def _degenerate(boxes):
+    """Zero-area boxes (0/0 overlaps) and NaN coordinates, which suppress
+    nothing, in place."""
+    boxes[:, ::7, 2:] = boxes[:, ::7, :2]
+    for k in range(4):
+        boxes[:, 3 + k::11 * 4, k] = np.nan
+    return boxes
+
+
 # K1's edges: where its walk starts, ends or crosses a word (64 boxes) or a
 # chunk (words 0-7, 8-15, then 16 at a time) and its degenerate
 # inputs.  "at-<i>" names the box at which the out_k-th keep falls.
@@ -286,13 +308,7 @@ def k1_edge_case(name: str):
     [P, N] bool, seg [P, N] int32 or None, mode, thresh, out_k or None)."""
     from fdt_torch.geometry.nms import nms_keep_mask
 
-    def make(seed, p, n, spread, valid_frac=0.9):
-        rng = np.random.RandomState(seed)
-        centers = rng.rand(p, n, 2) * spread
-        wh = rng.rand(p, n, 2) * 3.0 + 0.5
-        boxes = np.concatenate([centers - wh / 2, centers + wh / 2], -1).astype(np.float32)
-        return boxes, rng.rand(p, n) < valid_frac, rng
-
+    make = _edge_boxes
     if name.startswith("out_k-at-"):
         # box i is valid and far from every other box, so it is kept: out_k is
         # the number of keeps up to it, which no box after i can change
@@ -330,18 +346,97 @@ def k1_edge_case(name: str):
         seg = np.broadcast_to((np.arange(3000) // 200 % 3).astype(np.int32), (2, 3000))
         return boxes, valid, np.ascontiguousarray(seg), name.split("-")[-1], 0.4, None
     if name.startswith("degenerate"):
-        # zero-area boxes (0/0 overlaps) and NaN coordinates suppress nothing
         boxes, valid, _ = make(26, 2, 1200, 10.0)
-        boxes[:, ::7, 2:] = boxes[:, ::7, :2]
-        for k in range(4):
-            boxes[:, 3 + k::11 * 4, k] = np.nan
-        return boxes, valid, None, name.split("-")[-1], 0.3, None
+        return _degenerate(boxes), valid, None, name.split("-")[-1], 0.3, None
     if name == "p1":
         boxes, valid, _ = make(27, 1, 2500, 60.0)
         return boxes, valid, None, "union", 0.45, None
     if name == "p16-out_k":
         boxes, valid, _ = make(28, 16, 1000, 40.0)
         return boxes, valid, None, "union", 0.5, 300
+    raise KeyError(name)
+
+
+# K2's edges, for its cluster of 8 blocks a problem that deal the words of
+# 64 boxes round robin: problems smaller than a word, than a cluster's
+# words (some blocks own none) and at the word and owner boundaries of 8
+# and 16 words (N = 511, 512, 513 and 1023, 1024, 1025); an extent
+# that ends inside a word; no valid box, or only the last; a suppression
+# chain that alternates across owners; every box kept (the heaviest push);
+# identical boxes; zero-area and NaN boxes; thresh 0 (no intersection
+# skip); more clusters than the card holds at once (P = 64); N = 8192.
+K2_EDGES = ("p1-n1", "n63", "n64", "n65", "n300-fewer-words-than-blocks", "n511", "n512",
+            "n513", "n1023", "n1024", "n1025", "extent-mid-word", "no-valid", "last-valid-only",
+            "chain-across-owners-union", "chain-across-owners-minimum", "no-overlaps",
+            "identical", "degenerate-union", "degenerate-minimum", "thresh-zero", "p64",
+            "n8192")
+CHAIN_WORDS = 18  # the chain case: one chain box in each of 18 words
+
+
+def k2_edge_case(name: str):
+    """One case of K2_EDGES as numpy arrays: (boxes [P, N, 4] float32, valid
+    [P, N] bool, mode, thresh)."""
+    make = _edge_boxes
+    if name == "p1-n1":
+        boxes, valid, _ = make(30, 1, 1, 4.0)
+        return boxes, np.ones_like(valid), "union", 0.5
+    if name == "n300-fewer-words-than-blocks":
+        boxes, valid, _ = make(31, 2, 300, 15.0)
+        return boxes, valid, "union", 0.5
+    if name == "extent-mid-word":
+        # the last valid boxes are 699 and 332: inside words 10 and 5
+        boxes, valid, _ = make(32, 2, 1000, 25.0)
+        valid[0, 700:] = valid[1, 333:] = False
+        valid[0, 699] = valid[1, 332] = True
+        return boxes, valid, "union", 0.5
+    if name == "no-valid":
+        boxes, valid, _ = make(33, 2, 600, 10.0)
+        return boxes, np.zeros_like(valid), "union", 0.5
+    if name == "last-valid-only":
+        boxes, valid, _ = make(34, 2, 1000, 10.0)
+        valid[:] = False
+        valid[:, -1] = True
+        return boxes, valid, "union", 0.5
+    if name.startswith("chain-across-owners"):
+        # chain box k, in word k, is the unit square shifted by 0.3 k: it
+        # overlaps box k + 1 by IoU 0.54 (0.7 of the smaller) and box k + 2
+        # by 0.25 (0.4), so the even boxes are kept and each odd one, which
+        # would have suppressed the next, is suppressed; the other boxes
+        # lie far away
+        n = 64 * CHAIN_WORDS - 20
+        boxes, valid, _ = make(35, 2, n, 40.0)
+        boxes += 100.0
+        for k in range(CHAIN_WORDS):
+            i = min(64 * k + 7 * k % 64, n - 1)
+            boxes[:, i] = [0.3 * k, 0.0, 0.3 * k + 1.0, 1.0]
+            valid[:, i] = True
+        return boxes, valid, name.split("-")[-1], 0.5
+    if name == "no-overlaps":
+        k = np.arange(2048)
+        x, y = (2 * (k % 64)).astype(np.float32), (2 * (k // 64)).astype(np.float32)
+        boxes = np.broadcast_to(np.stack([x, y, x + 1, y + 1], -1), (2, 2048, 4)).copy()
+        return boxes, np.ones((2, 2048), bool), "union", 0.5
+    if name == "identical":
+        boxes = np.broadcast_to(np.array([1, 1, 3, 3], np.float32), (2, 700, 4)).copy()
+        valid = np.ones((2, 700), bool)
+        valid[1, :100] = False
+        return boxes, valid, "union", 0.5
+    if name.startswith("degenerate"):
+        boxes, valid, _ = make(36, 2, 1200, 10.0)
+        return _degenerate(boxes), valid, name.split("-")[-1], 0.3
+    if name == "thresh-zero":
+        boxes, valid, _ = make(37, 2, 700, 30.0)
+        return boxes, valid, "union", 0.0
+    if name == "p64":
+        boxes, valid, _ = make(38, 64, 300, 15.0)
+        return boxes, valid, "union", 0.45
+    if name == "n8192":
+        boxes, valid, _ = make(39, 2, 8192, 120.0)
+        return boxes, valid, "union", 0.4
+    if name[0] == "n":
+        n = int(name[1:])
+        boxes, valid, _ = make(30 + n, 3, n, max(4.0, n ** 0.5))
+        return boxes, valid, "union", 0.5
     raise KeyError(name)
 
 
@@ -395,11 +490,10 @@ def _device_split(fn, iters: int = 10):
 
 
 def k1_timings() -> dict:
-    """K1 at each timed case: `ms` by CUDA events over 20 back-to-back calls
-    (after 3), `host_ms` the wrapper's host time a call (20 calls enqueued
-    without a wait), `split` the device time of each of its kernels and
-    `device_ms` their sum (torch.profiler), and the bound from the pair tests
-    the greedy walk needs on this data."""
+    """K1 at each timed case: _kernel_timings (`ms` by CUDA events over 20
+    back-to-back calls after 3, the wrapper's host time, each of its
+    kernels' device time from torch.profiler) and the bound from the pair
+    tests the greedy walk needs on this data."""
     from fdt_torch.geometry.nms import nms_keep_mask
     from fdt_torch.ops import nms as nms_op
 
@@ -413,18 +507,24 @@ def k1_timings() -> dict:
 
         full = nms_keep_mask(boxes, valid, thresh, mode=mode, seg_id=seg)
         pairs = _pairs_needed(boxes, valid, full, thresh, mode, out_k, seg)
-        timed = _time_keep(call, pairs, valid)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(20):
-            call()
-        host_ms = (time.perf_counter() - t0) / 20 * 1e3
-        torch.cuda.synchronize()
-        split, sequence = _device_split(call)
-        out[name] = {**timed, "host_ms": host_ms, "split": split, "sequence": sequence,
-                     "device_ms": sum(s["us"] for s in split.values()) / 1e3 if split else None,
-                     "keeps": full.sum(-1).tolist()}
+        out[name] = {**_kernel_timings(call, pairs, valid), "keeps": full.sum(-1).tolist()}
     return out
+
+
+def _kernel_timings(call, pairs, valid) -> dict:
+    """_time_keep's fields for call(), `host_ms` the wrapper's host time a
+    call (20 calls enqueued without a wait), `split` and `sequence` from
+    _device_split and `device_ms` the sum of its kernels' device times."""
+    timed = _time_keep(call, pairs, valid)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        call()
+    host_ms = (time.perf_counter() - t0) / 20 * 1e3
+    torch.cuda.synchronize()
+    split, sequence = _device_split(call)
+    return {**timed, "host_ms": host_ms, "split": split, "sequence": sequence,
+            "device_ms": sum(s["us"] for s in split.values()) / 1e3 if split else None}
 
 
 def _pairs_computed(boxes, valid, keep, thresh, mode="union", out_k=None, seg=None) -> int:
@@ -480,10 +580,10 @@ def _pairs_computed(boxes, valid, keep, thresh, mode="union", out_k=None, seg=No
     return total
 
 
-def _k1_line(name, split, sequence, **fields) -> None:
-    """One `[k1]` line: the fields, each kernel's device µs and launches a
-    call, and the device µs of each launch of one call, in order."""
-    print(f"[k1] {name} " + " ".join(f"{k}={v}" for k, v in fields.items()) + " "
+def _kernel_line(tag, name, split, sequence, **fields) -> None:
+    """One `[k1]` or `[k2]` line: the fields, each kernel's device µs and
+    launches a call, and the device µs of each launch of one call, in order."""
+    print(f"[{tag}] {name} " + " ".join(f"{k}={v}" for k, v in fields.items()) + " "
           + " ".join(f"{k}={v['us']:.2f}us/{v['launches']:g}" for k, v in split.items())
           + " launches_us=" + ",".join(f"{k[4:-7]}:{us:.1f}" for k, us in sequence), flush=True)
 
@@ -542,7 +642,7 @@ def phase_kernels(device):
            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{flagship['bound_ms']:.6f}",
            keeps=flagship["keeps"])
     for name, t in timed.items():
-        _k1_line(name, t["split"], t["sequence"], ms=f"{t['ms']:.4f}",
+        _kernel_line("k1", name, t["split"], t["sequence"], ms=f"{t['ms']:.4f}",
                  device_ms="not_measured" if t["device_ms"] is None else f"{t['device_ms']:.4f}",
                  host_ms=f"{t['host_ms']:.4f}", bound_ms=f"{t['bound_ms']:.6f}",
                  pairs_needed=t["pairs"], pairs_computed=t["pairs_computed"])
@@ -564,12 +664,91 @@ def _time_keep(fn, pairs, valid) -> dict:
             "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations"}
 
 
+# K2's timed cases: name → (seed, P, N, spread, mode, thresh), FaceBoxes'
+# shape (P = 16, budget 2048) and the flagship's (P = 8 images, budget 5000)
+K2_TIMED = {
+    "facebox-16x2048": (12, FACEBOX_BATCH, 2048, 50.0, "union", 0.5),
+    "flagship-8x5000": (9, BATCH, 5000, 300.0, "union", 0.35),
+}
+
+
+def _k2_pairs_computed(boxes, valid, keep, thresh, mode="union") -> int:
+    """Pair tests K2 computes on this data (nms_greedy.cu), at most: within
+    each word up to the last valid one, each valid box against the valid
+    boxes after it in its word (the hit words the walk resolves from); then,
+    for each word w, each of its kept boxes against every box of a later
+    word that no kept box of a word before w has suppressed (the push does
+    not stop at a box's first suppressor, and a box that a kept box of w
+    itself suppresses may still be tested by another warp's share)."""
+    from fdt_torch.geometry.nms import _overlap_matrix
+
+    n = valid.shape[-1]
+    word = torch.arange(n, device=valid.device) // 64
+    words = (n + 63) // 64
+    thresh = torch.tensor(thresh, dtype=torch.float32, device=valid.device)
+    total = 0
+    for b, v, k in zip(boxes.reshape(-1, n, 4), valid.reshape(-1, n), keep.reshape(-1, n)):
+        if not bool(v.any()):
+            continue
+        per_word = torch.bincount(word[v], minlength=words)
+        total += int((per_word * (per_word - 1) // 2).sum())
+        # the earliest word before its own whose kept box suppresses a box
+        hits = (_overlap_matrix(b, mode) >= thresh) & k[:, None] & (word[:, None] < word[None, :])
+        first = torch.where(hits, word[:, None], words).amin(dim=0)
+        kept_through = torch.cumsum(torch.bincount(word[k], minlength=words), 0)
+        upto = torch.minimum(word - 1, first)  # the last word whose push tests the box
+        tested = torch.where(upto >= 0, kept_through[upto.clamp(min=0)], 0)
+        total += int((tested * v).sum())
+    return total
+
+
+def k2_timings() -> dict:
+    """K2 at each case of K2_TIMED: _kernel_timings as for K1 and the bound
+    from the pair tests the greedy walk needs.  Raises if a keep mask
+    differs from the plain version's."""
+    from fdt_torch.geometry.nms import nms_keep_mask
+    from fdt_torch.ops import nms as nms_op
+
+    out = {}
+    for name, (seed, p, n, spread, mode, thresh) in K2_TIMED.items():
+        boxes, valid, _ = _nms_case(seed, p, n, spread, False)
+
+        def call():
+            return nms_op.nms_keep_greedy(boxes, valid, thresh, mode=mode)
+
+        keep = nms_keep_mask(boxes, valid, thresh, mode=mode)
+        if not torch.equal(call(), keep):
+            raise AssertionError(f"K2 != plain: {name}")
+        out[name] = {
+            **_kernel_timings(call, _pairs_needed(boxes, valid, keep, thresh, mode), valid),
+            "keeps": keep.sum(-1).tolist()}
+    return out
+
+
+def k2_design() -> dict:
+    """This checkout's K2 at each case of K2_TIMED: its blocks a problem (the
+    cluster size), the clusters the card runs at once and the pair tests it
+    computes."""
+    from fdt_torch.geometry.nms import nms_keep_mask
+    from fdt_torch.ops._build import library
+
+    lib = library()
+    out = {}
+    for name, (seed, p, n, spread, mode, thresh) in K2_TIMED.items():
+        boxes, valid, _ = _nms_case(seed, p, n, spread, False)
+        keep = nms_keep_mask(boxes, valid, thresh, mode=mode)
+        out[name] = {"cluster": lib.fdt_nms_greedy_cluster(),
+                     "max_clusters": lib.fdt_nms_greedy_max_clusters(n),
+                     "pairs_computed": _k2_pairs_computed(boxes, valid, keep, thresh, mode)}
+    return out
+
+
 def phase_k2(device):
     """K2 against its plain version and against K1 without out_k, bit-equal
     keep masks, on the cases of tests/test_pallas_nms.py:10-37 (N = 200 and
     300, seeds 0 and 1, union and minimum, the valid-mask case), a zero-area
-    box, N = 1000, FaceBoxes' shape (P = 16, N = 2048) and the flagship's
-    (P = 8, N = 5000); timed at the last two."""
+    box, N = 1000, FaceBoxes' shape (P = 16, N = 2048), the flagship's
+    (P = 8, N = 5000) and its edges (K2_EDGES); then timed on K2_TIMED."""
     from fdt_torch.geometry.nms import nms_keep_mask
     from fdt_torch.ops import nms as nms_op
 
@@ -586,10 +765,12 @@ def phase_k2(device):
     for mode in ("union", "minimum"):
         cases.append((f"degenerate-{mode}", boxes, valid, mode, 0.5))
     cases.append(("n1000", *_nms_case(11, 1, 1000, 30.0, False)[:2], "union", 0.4))
-    facebox = ("facebox-16x2048", *_nms_case(12, FACEBOX_BATCH, 2048, 50.0, False)[:2],
-               "union", 0.5)
-    flagship = ("flagship-8x5000", *_nms_case(9, BATCH, 5000, 300.0, False)[:2], "union", 0.35)
-    cases += [facebox, flagship]
+    for name, (seed, p, n, spread, mode, thresh) in K2_TIMED.items():
+        cases.append((name, *_nms_case(seed, p, n, spread, False)[:2], mode, thresh))
+    for name in K2_EDGES:
+        boxes, valid, mode, thresh = k2_edge_case(name)
+        cases.append((name, torch.from_numpy(boxes).to(device), torch.from_numpy(valid).to(device),
+                      mode, thresh))
     max_err = 0.0
     before = nms_op.greedy_launches.count
     for name, boxes, valid, mode, thresh in cases:
@@ -603,24 +784,30 @@ def phase_k2(device):
     if nms_op.greedy_launches.count - before != len(cases):
         raise AssertionError("K2 was not launched once on every case")
 
-    timed = {}
-    for name, boxes, valid, mode, thresh in (facebox, flagship):
-        keep = nms_keep_mask(boxes, valid, thresh, mode=mode)
-        timed[name] = _time_keep(
-            lambda: nms_op.nms_keep_greedy(boxes, valid, thresh, mode=mode),
-            _pairs_needed(boxes, valid, keep, thresh, mode), valid)
-        timed[name].update(
+    timed = k2_timings()
+    design = k2_design()
+    for name, t in timed.items():
+        t.update(design[name])
+        seed, p, n, spread, mode, thresh = K2_TIMED[name]
+        boxes, valid, _ = _nms_case(seed, p, n, spread, False)
+        t.update(
             k1_ms=_cuda_ms(lambda: nms_op.nms_keep_tiled(boxes, valid, thresh, mode=mode), 20),
-            plain_ms=_cuda_ms(lambda: nms_keep_mask(boxes, valid, thresh, mode=mode), 2),
-            keeps=keep.sum(-1).tolist())
-    fb, fl = timed[facebox[0]], timed[flagship[0]]
-    _phase("kernels_k2", t0, cases=len(cases),
+            plain_ms=_cuda_ms(lambda: nms_keep_mask(boxes, valid, thresh, mode=mode), 2))
+    fb, fl = timed["facebox-16x2048"], timed["flagship-8x5000"]
+    _phase("kernels_k2", t0, cases=len(cases), edges=len(K2_EDGES), cluster=fb["cluster"],
            k2_ms_16x2048=f"{fb['ms']:.4f}", plain_ms_16x2048=f"{fb['plain_ms']:.4f}",
            bound_ms_16x2048=f"{fb['bound_ms']:.6f}", k1_full_ms_16x2048=f"{fb['k1_ms']:.4f}",
            pairs_16x2048=fb["pairs"],
            k2_ms_8x5000=f"{fl['ms']:.4f}", plain_ms_8x5000=f"{fl['plain_ms']:.4f}",
            bound_ms_8x5000=f"{fl['bound_ms']:.6f}", k1_full_ms_8x5000=f"{fl['k1_ms']:.4f}",
            pairs_8x5000=fl["pairs"], keeps_8x5000=fl["keeps"])
+    for name, t in timed.items():
+        _kernel_line("k2", name, t["split"], t["sequence"], ms=f"{t['ms']:.4f}",
+                     device_ms="not_measured" if t["device_ms"] is None
+                     else f"{t['device_ms']:.4f}",
+                     host_ms=f"{t['host_ms']:.4f}", bound_ms=f"{t['bound_ms']:.6f}",
+                     cluster=t["cluster"], max_clusters=t["max_clusters"],
+                     pairs_needed=t["pairs"], pairs_computed=t["pairs_computed"])
     return {**fb, "max_abs_err": max_err, "flagship": fl}
 
 
@@ -693,7 +880,7 @@ def phase_flagship(device):
     # where each problem's walk ends: the box of its out_k-th keep
     ends = [int(torch.nonzero(k)[min(out_k, int(k.sum())) - 1])
             for k in full.reshape(-1, full.shape[-1])]
-    _k1_line("flagship-own-boxes", split, sequence, ms=f"{real_ms:.4f}", walk_ends=ends,
+    _kernel_line("k1", "flagship-own-boxes", split, sequence, ms=f"{real_ms:.4f}", walk_ends=ends,
              pairs_needed=_pairs_needed(boxes, valid, full, thresh, out_k=out_k),
              pairs_computed=_pairs_computed(boxes, valid, full, thresh, out_k=out_k))
     _phase("flagship_bf16", t0, batch=BATCH, images_per_s=f"{max(rates):.2f}",
@@ -1004,7 +1191,8 @@ def main() -> int:
         "replaces": "fdt/ops/pallas_nms.py:31",
         "launches": k2_launches, "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
-        "bound_by": k2["bound_by"], "library_ms": None}]}))
+        "bound_by": k2["bound_by"], "library_ms": None,
+        "device_ms": k2["device_ms"], "host_ms": k2["host_ms"]}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -39,13 +39,16 @@ __device__ __forceinline__ bool suppresses(const float4 a, float area_a,
   return __fdiv_rn(inter, denom) >= thresh;
 }
 
-// Whether a and b overlap in both axes by a positive amount, by the first
-// operations of suppresses().  When they do not, the ratio there is 0, -0 or
-// NaN, so suppresses() is false for every thresh > 0 and a caller may skip
-// its division.
-__device__ __forceinline__ bool intersects(const float4 a, const float4 b) {
-  return __fsub_rn(min_nan(a.z, b.z), max_nan(a.x, b.x)) > 0.0f &&
-         __fsub_rn(min_nan(a.w, b.w), max_nan(a.y, b.y)) > 0.0f;
+// A guard a caller may test before suppresses() to skip its division, by
+// four comparisons (symmetric in a and b): false only where a and b share no
+// area.  When it is false, a.z <= b.x, b.z <= a.x,
+// a.w <= b.y or b.w <= a.y holds (or a coordinate is NaN), so
+// min(a.z, b.z) <= max(a.x, b.x) or the same in y: the intersection in
+// suppresses() is 0 (or NaN) and its ratio 0, -0 or NaN, which suppresses
+// nothing for thresh > 0.  Inverted boxes (x2 < x1) may pass it; suppresses()
+// then decides.
+__device__ __forceinline__ bool may_overlap(const float4 a, const float4 b) {
+  return a.z > b.x && b.z > a.x && a.w > b.y && b.w > a.y;
 }
 
 }  // namespace

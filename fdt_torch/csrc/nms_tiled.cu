@@ -37,21 +37,21 @@
 //         yet: each live row stores its word of hits on each later column
 //         word of the chunk, in a [chunk words][chunk rows] scratch that
 //         every chunk reuses.
-//     A thread tests kStep pairs at once for an intersection (independent,
+//     A thread tests kStep pairs at once with may_overlap() (independent,
 //     so they overlap in the pipeline) and divides only for those that
-//     intersect.  Rows and columns already removed, and those past the
-//     valid extent, are never tested.
+//     pass.  Rows and columns already removed, and those past the valid
+//     extent, are never tested.
 //   * per chunk, a sweep launch, one 512-thread block per problem: one
 //     round trip brings the state, the chunk's `removed` words and the
 //     diagonal words of all its rows into shared memory.  Then, per word,
 //     warp 0 resolves the word's keeps as the plain version does, on 64
 //     bits: from the live boxes, clear every box that a box of the set
 //     suppresses, and repeat until the set holds (each pass fixes at least
-//     the next box in order; short suppression chains take two or three),
-//     then cuts the set at the out_k-th keep.  One warp per later word of
-//     the chunk ORs the kept rows' words into it; it loaded them while the
-//     word before was resolved, so no load waits on the walk.  Two barriers
-//     a word.
+//     the next box in order; short suppression chains take two or three;
+//     resolve_word in nms_word.cuh, shared with K2), then cuts the set at
+//     the out_k-th keep.  One warp per later word of the chunk ORs the kept
+//     rows' words into it; it loaded them while the word before was
+//     resolved, so no load waits on the walk.  Two barriers a word.
 // Scratch, per problem: 16 bytes of state, two words of 8 bytes per 64
 // boxes (`removed`, `kept`), and the chunk's stored words, 64 W^2 words of
 // 8 bytes for the largest chunk of W words: 32 KB up to N = 1024 (W = 8),
@@ -61,7 +61,8 @@
 // the card (those that find every walk ended) and on the host (13 launches
 // at N = 5000); PERF.md has the split.
 //
-// The overlap test is fdt_torch/csrc/nms_overlap.cuh, shared with K2.
+// The overlap test (nms_overlap.cuh) and the word resolve (nms_word.cuh) are
+// shared with K2.
 //
 // C interface (loaded with ctypes): fdt_nms_tiled returns cudaGetLastError()
 // after its launches; it launches on the given stream, does not synchronise
@@ -75,6 +76,7 @@
 #include <cuda_runtime.h>
 
 #include "nms_overlap.cuh"
+#include "nms_word.cuh"
 
 namespace {
 
@@ -122,20 +124,18 @@ int largest_chunk(int words) {
 
 // Which of the staged boxes j0 .. j0 + kStep - 1 (below `count`) could
 // overlap `x` by a positive ratio: bit q for box j0 + q, same segment and
-// intersecting.  Without an intersection the ratio is 0, -0 or NaN, so for
-// thresh > 0 suppresses() is false and its division is skipped; the kStep
-// tests are independent, so they overlap in the pipeline.  `staged_first`
-// says whether the staged box is the earlier one of the pair.
+// passing may_overlap(); for the others and thresh > 0 suppresses() is false
+// and its division is skipped.  The kStep tests are independent, so they
+// overlap in the pipeline.
 __device__ __forceinline__ unsigned candidates(const float4* box_s, const int32_t* seg_s,
                                                int j0, int count, const float4 x,
-                                               int32_t seg_x, float thresh, bool staged_first) {
+                                               int32_t seg_x, float thresh) {
   unsigned cand = 0u;
 #pragma unroll
   for (int q = 0; q < kStep; ++q) {
     const int j = j0 + q < count ? j0 + q : j0;  // a valid index; masked below
     const bool same = seg_s[j] == seg_x && j0 + q < count;
-    const bool meet = !(thresh > 0.0f) ||
-                      (staged_first ? intersects(box_s[j], x) : intersects(x, box_s[j]));
+    const bool meet = !(thresh > 0.0f) || may_overlap(box_s[j], x);
     cand |= static_cast<unsigned>(same && meet) << q;
   }
   return cand;
@@ -243,7 +243,7 @@ nms_mask_kernel(const float4* __restrict__ boxes,  // [P, N]
       __syncthreads();
       const int count = __popcll(rows);
       for (int j0 = 0; live && j0 < count && !found; j0 += kStep) {
-        const unsigned cand = candidates(box_s, seg_s, j0, count, b, seg_b, thresh, true);
+        const unsigned cand = candidates(box_s, seg_s, j0, count, b, seg_b, thresh);
         for (int q = 0; q < kStep && !found; ++q) {
           found = ((cand >> q) & 1u) &&
                   suppresses(box_s[j0 + q], area_s[j0 + q], b, area_b, thresh, minimum_mode);
@@ -278,7 +278,7 @@ nms_mask_kernel(const float4* __restrict__ boxes,  // [P, N]
   for (int j0 = 0; j0 < kTile; j0 += kStep) {
     const unsigned live = static_cast<unsigned>(todo >> j0) & ((1u << kStep) - 1u);
     if (!live) continue;
-    const unsigned cand = live & candidates(box_s, seg_s, j0, kTile, a, seg_a, thresh, false);
+    const unsigned cand = live & candidates(box_s, seg_s, j0, kTile, a, seg_a, thresh);
     for (int q = 0; q < kStep; ++q) {
       if (((cand >> q) & 1u) &&
           suppresses(a, area_a, box_s[j0 + q], area_s[j0 + q], thresh, minimum_mode)) {
@@ -333,21 +333,8 @@ nms_sweep_kernel(uint8_t* __restrict__ keep,  // [P, N]
       next_hi = rows_of(w + 1)[lane + 32];
     }
     if (warp == 0) {
-      // resolve word w from shared memory, as the plain version does: start
-      // from its live boxes, drop every box that one of them suppresses,
-      // and repeat from the live boxes until the set holds (each pass fixes
-      // at least the next box in order; short suppression chains take 2-3)
-      const unsigned long long live = ~rem[ww];
-      const unsigned long long d_lo = diag[ww][lane], d_hi = diag[ww][lane + 32];
-      unsigned long long kw = live;
-      for (;;) {
-        unsigned long long cleared = (((kw >> lane) & 1ull) ? d_lo : 0ull) |
-                                     (((kw >> (lane + 32)) & 1ull) ? d_hi : 0ull);
-        for (int off = 16; off > 0; off >>= 1) cleared |= __shfl_xor_sync(0xffffffffu, cleared, off);
-        const unsigned long long next = live & ~cleared;
-        if (next == kw) break;
-        kw = next;
-      }
+      // resolve word w from shared memory, as the plain version does
+      unsigned long long kw = resolve_word(~rem[ww], diag[ww][lane], diag[ww][lane + 32], lane);
       if (lane == 0) {
         int k = kept + __popcll(kw);
         if (out_k > 0 && k >= out_k) {  // the walk ends at the out_k-th keep

@@ -40,6 +40,10 @@ SIGNATURES = {
     "fdt_nms_tiled_cross_words": [_I],
     # boxes, valid, keep, p, n, thresh, minimum_mode, stream
     "fdt_nms_greedy": [_P, _P, _P, _I, _I, _F, _I, _P],
+    # → blocks a problem (the cluster size)
+    "fdt_nms_greedy_cluster": [],
+    # n → clusters the card runs at once for problems of n boxes (< 0: CUDA error)
+    "fdt_nms_greedy_max_clusters": [_I],
 }
 
 _lock = threading.Lock()

@@ -21,7 +21,10 @@ from fdt_torch.geometry.nms import nms_keep_mask
 
 _MODES = {"union": 0, "minimum": 1}
 _MAX_WORDS = 65535  # K1: words of 64 boxes; keeps the mask launch's grid.y in range
-_GREEDY_MAX_BOXES = 8192  # K2 stages 21 bytes a box in shared memory: 168 KB
+# K2 takes problems of at most 8192 boxes: the limit of the Pallas kernel's
+# VMEM that it replaces (fdt/ops/pallas_nms.py:4-5), kept as the wrapper's
+# contract; a block of its cluster then stages at most 28 KB
+_GREEDY_MAX_BOXES = 8192
 
 
 class _Launches:
@@ -133,11 +136,12 @@ def nms_keep_greedy(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
                     mode: str = "union") -> torch.Tensor:
     """Greedy-NMS keep mask over boxes sorted by descending score, by the
     literal one-box-at-a-time loop (K2).  The same function as
-    nms_keep_tiled without seg_id and out_k.
+    nms_keep_tiled without seg_id and out_k.  On the card one launch solves
+    every problem, each on a cluster of 8 blocks.
 
     Args:
       boxes:  [P, N, 4] (or [..., N, 4]) float32 point-form boxes; N ≤ 8192
-        on the card.
+        on the card (the wrapper's contract, as in fdt).
       valid:  [P, N] bool.
       iou_thresh: overlap >= iou_thresh suppresses.
       mode:   "union" | "minimum".
@@ -152,7 +156,7 @@ def nms_keep_greedy(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
     _check_card(boxes, valid)
     n = boxes.shape[-2]
     p = math.prod(boxes.shape[:-2])
-    if n > _GREEDY_MAX_BOXES or p > 2**31 - 1:  # shared memory; grid.x
+    if n > _GREEDY_MAX_BOXES or p > 2**31 - 1:  # the contract; a C int
         raise ValueError(f"problem too large for the kernel: P={p}, N={n} "
                          f"(N ≤ {_GREEDY_MAX_BOXES})")
     keep = torch.empty(valid.shape, dtype=torch.uint8, device=boxes.device)

@@ -146,6 +146,26 @@ def test_kernel_bit_equal_to_plain_at_the_walks_edges(card, name):
         assert int(got.sum(-1).max()) <= out_k
 
 
+def _k2_edge(name, card):
+    return tuple(torch.from_numpy(a).to(card) if isinstance(a, np.ndarray) else a
+                 for a in chip_smoke.k2_edge_case(name))
+
+
+@pytest.mark.parametrize("name", chip_smoke.K2_EDGES)
+def test_greedy_kernel_bit_equal_to_plain_and_k1_at_its_edges(card, name):
+    """K2 on chip_smoke.K2_EDGES: problems smaller than a word and than a
+    cluster's words; the word and owner boundaries at 8 and 16 words;
+    an extent inside a word; no valid box, or only the last; a suppression
+    chain across owners; every box kept; identical boxes; zero-area and NaN
+    boxes; thresh 0; P = 64; N = 8192."""
+    boxes, valid, mode, thresh = _k2_edge(name, card)
+    before = nms_op.greedy_launches.count
+    got = nms_op.nms_keep_greedy(boxes, valid, thresh, mode=mode)
+    assert nms_op.greedy_launches.count == before + 1
+    assert torch.equal(got, nms.nms_keep_mask(boxes, valid, thresh, mode=mode))
+    assert torch.equal(got, nms_op.nms_keep_tiled(boxes, valid, thresh, mode=mode))
+
+
 @pytest.fixture
 def tf32_flags_on():
     """The global TF32 flags on, as torch leaves cuDNN's by default."""

@@ -12,7 +12,7 @@ torch.set_num_threads(1)
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "cv2", "fdt"}
 SOURCES = sorted((REPO / "fdt_torch").rglob("*.py")) + [REPO / "chip_smoke.py",
-                                                      REPO / "profile_k1.py"]
+                                                      REPO / "profile_nms.py"]
 
 
 def imported_roots(path: pathlib.Path) -> set[str]:
