@@ -38,7 +38,16 @@ Phases, each printing one line with its seconds:
                against the JAX goldens, then bf16 images/s at batch 8, 640²;
                try2, try4 and try5 on seeded weights: a detect call whose
                source shapes are those fdt recorded.
-  7. serving — DetectionService answers 16 requests from 4 threads (float32)
+  7. mtcnn  — the MTCNN cascade at bench.py's configuration (480×640, batch
+               32, the ladder FAST → MID → full) on seeded weights: the
+               "sparse" golden batch against fdt's (counts, flags and tier
+               equal, scores within 1e-3, boxes and landmarks within 1e-2
+               px); on both settings the batch-32 call, 4 K1 launches a tier
+               run, images/s and the tier; K1 on the saturated cascade's own
+               per-level candidates (32 × 8192, segmented) bit-equal to its
+               plain version and timed; the batch's first frame against
+               detect_face; DetectionService("mtcnn") under 4 threads.
+  8. serving — DetectionService answers 16 requests from 4 threads (float32)
                for the pyramidbox family (640²) and the facebox family (mixed
                sizes); each answer agrees with the direct call on its frame,
                up to the summation order of another batch size.
@@ -101,14 +110,50 @@ VARIANT_FRAME_SEED, VARIANT_WEIGHTS_SEED = 0, 0
 VARIANT_CONF, VARIANT_NMS = 0.01, 0.35
 
 
+# MTCNN: bench.py's configuration (bench.py:244-281), 480×640 frames at batch
+# 32 through the budget ladder FAST → MID → full, on weights made from a seed
+# (the reference .pt files are not in the repo), in two settings:
+# "saturated", the plain seeded nets, whose PNet passes more than 8192 cells
+# of a 480×640 frame, so that every budget fills; "sparse", the same nets
+# with PNet's score bias and RNet's shifted down, so that a 480×640 frame
+# overflows FAST_BUDGETS (its per-level survivors pass FAST's merge_k of 512,
+# not MID's 1024) and settles on MID_BUDGETS, as bench.py's own frame does
+# (bench.py:250-252).  RNet's shift is needed too: the seeded RNet passes
+# every crop, which would fill ONet's 128 candidates in every tier.
+MTCNN_H, MTCNN_W, MTCNN_BATCH = 480, 640, 32
+MTCNN_WEIGHTS_SEED = 1
+MTCNN_SHIFTS = {"saturated": {},
+                "sparse": {"pnet": ("conv4_1", 0.6), "rnet": ("conv5_1", 1.6)}}
+MTCNN_GOLDEN = GOLDEN_DIR / "mtcnn_sparse.npz"
+MTCNN_FRAME_SEEDS = (0, 1)  # the sparse golden's batch
+MTCNN_PX_TOL = 1e-2  # golden boxes and landmarks, pixels
+
+
+def mtcnn_variables(setting: str) -> tuple:
+    """flax-layout variables of (PNet, RNet, ONet) for a setting of
+    MTCNN_SHIFTS: seeded_variables with the setting's bias shifts."""
+    from fdt_torch.models import ONet, PNet, RNet
+
+    out = []
+    for name, model in (("pnet", PNet()), ("rnet", RNet()), ("onet", ONet())):
+        variables = seeded_variables(model, MTCNN_WEIGHTS_SEED)
+        if name in MTCNN_SHIFTS[setting]:
+            layer, shift = MTCNN_SHIFTS[setting][name]
+            params = variables["params"][layer]
+            params["bias"] = params["bias"] - np.float32(shift)
+        out.append(variables)
+    return tuple(out)
+
+
 def variant_golden(variant: str) -> pathlib.Path:
     return GOLDEN_DIR / f"{variant}.npz"
 
 
 def seeded_variables(model: torch.nn.Module, seed: int) -> dict:
     """flax-layout variables for the port's `model`, filled from a numpy seed:
-    He-scaled HWIO conv kernels, small biases, BatchNorm scale and statistics
-    away from identity (var drawn positive).  Module names are the torch
+    He-scaled HWIO conv kernels and [in, out] Dense kernels, small biases,
+    BatchNorm scale and statistics away from identity (var drawn positive),
+    one PReLU slope in 0.1-0.3.  Module names are the torch
     paths with `.` spelled `__` (one flat level, which from_jax_variables
     reads as it is; the tests nest them into fdt's tree).  No weight file is
     needed: the goldens and this script make the same weights from the seed."""
@@ -122,6 +167,12 @@ def seeded_variables(model: torch.nn.Module, seed: int) -> dict:
                                       * np.sqrt(2.0 / (kh * kw * i))).astype(np.float32)}
             if mod.bias is not None:
                 params[key]["bias"] = (rng.randn(o) * 0.05).astype(np.float32)
+        elif isinstance(mod, torch.nn.Linear):
+            o, i = mod.weight.shape
+            params[key] = {"kernel": (rng.randn(i, o) * np.sqrt(2.0 / i)).astype(np.float32),
+                           "bias": (rng.randn(o) * 0.05).astype(np.float32)}
+        elif isinstance(mod, torch.nn.PReLU):
+            params[key] = {"negative_slope": np.float32(rng.uniform(0.1, 0.3))}
         elif isinstance(mod, torch.nn.BatchNorm2d):
             c = mod.num_features
             params[key] = {"scale": rng.uniform(0.5, 1.5, c).astype(np.float32),
@@ -157,6 +208,40 @@ def match_rows(got: np.ndarray, want: np.ndarray, n: int, tol: float,
     if err > tol:
         raise AssertionError(f"rows differ by {err} > {tol}")
     return err
+
+
+def match_detections(got_boxes, got_lm, want_boxes, want_lm, score_tol: float, px_tol: float,
+                     window: int = 3) -> tuple[float, float]:
+    """Compare two score-sorted MTCNN detection lists of one image, [N, 5]
+    boxes and [N, 10] landmarks; return (largest score difference, largest
+    pixel difference).
+
+    Counts must be equal.  Scores are compared position by position; a row
+    whose box and landmarks differ by more than px_tol may have swapped with
+    a near-tied neighbour: it must then match a row within `window` places
+    whose score is within score_tol.  Raises AssertionError."""
+    got_boxes, want_boxes = np.asarray(got_boxes), np.asarray(want_boxes)
+    if len(got_boxes) != len(want_boxes):
+        raise AssertionError(f"counts differ: {len(got_boxes)} against {len(want_boxes)}")
+    if not len(want_boxes):
+        return 0.0, 0.0
+    score_err = float(np.abs(got_boxes[:, 4] - want_boxes[:, 4]).max())
+    got = np.column_stack([got_boxes[:, :4], got_lm])
+    want = np.column_stack([want_boxes[:, :4], want_lm])
+    px_err = 0.0
+    for i in range(len(got)):
+        lo, hi = max(0, i - window), min(len(want), i + window + 1)
+        px = np.abs(want[lo:hi] - got[i]).max(axis=1)
+        if px[i - lo] > px_tol:
+            tied = np.abs(want_boxes[lo:hi, 4] - got_boxes[i, 4]) <= score_tol
+            px = px[tied] if tied.any() else px[i - lo:i - lo + 1]
+            px_err = max(px_err, float(px.min()))
+        else:
+            px_err = max(px_err, float(px[i - lo]))
+    if score_err > score_tol or px_err > px_tol:
+        raise AssertionError(f"detections differ: scores by {score_err:.3g} (tolerance "
+                             f"{score_tol}), pixels by {px_err:.3g} (tolerance {px_tol})")
+    return score_err, px_err
 
 
 def _phase(name: str, t0: float, **fields) -> None:
@@ -1029,25 +1114,252 @@ def phase_variants(device):
                count=int((out[0, 1, :, 0] > 0).sum()), k1_launches=launches)
 
 
+def mtcnn_cascade(setting: str, device, **kw):
+    """The port's MTCNN cascade on `setting`'s seeded weights with bench.py's
+    ladder (FAST → MID over the full DeviceBudgets); **kw go to the
+    cascade."""
+    from fdt_torch.infer import FAST_BUDGETS, MID_BUDGETS, MTCNNDeviceCascade
+    from fdt_torch.models import load_mtcnn_nets
+
+    return MTCNNDeviceCascade(*load_mtcnn_nets(*mtcnn_variables(setting)), device=device,
+                              fast_budgets=(FAST_BUDGETS, MID_BUDGETS), **kw)
+
+
+def check_mtcnn_golden(cascade) -> dict:
+    """The sparse golden's batch through `cascade` (mtcnn_cascade("sparse")):
+    counts, saturated flags and tier equal to fdt's, scores within
+    GOLDEN_TOL and boxes and landmarks within MTCNN_PX_TOL, near-tied rows
+    matched (match_detections).  Returns the largest differences."""
+    g = np.load(MTCNN_GOLDEN)
+    h, w = int(g["height"]), int(g["width"])
+    images = np.stack([golden_frame(int(seed), h, w) for seed in g["frame_seeds"]])
+    if hashlib.sha256(images.tobytes()).hexdigest() != str(g["frame_sha256"]):
+        raise AssertionError("the seeded frames differ from the MTCNN golden's")
+    boxes, lms, counts, sat = cascade.detect_batch(images)
+    if (counts.tolist() != g["counts"].tolist() or sat.tolist() != g["saturated"].tolist()
+            or cascade.last_tier != str(g["tier"])):
+        raise AssertionError(f"MTCNN golden: counts {counts.tolist()}, saturated "
+                             f"{sat.tolist()}, tier {cascade.last_tier}; fdt's "
+                             f"{g['counts'].tolist()}, {g['saturated'].tolist()}, {g['tier']}")
+    errs = [match_detections(boxes[i, :c], lms[i, :c], g["boxes"][i, :c], g["landmarks"][i, :c],
+                             GOLDEN_TOL, MTCNN_PX_TOL) for i, c in enumerate(counts)]
+    return {"counts": counts.tolist(), "tier": cascade.last_tier,
+            "score_err": max(e[0] for e in errs), "px_err": max(e[1] for e in errs)}
+
+
+def _count_tier_runs(cascade) -> list:
+    """Wrap cascade._run to append each run's tier to the returned list."""
+    runs = []
+    run = cascade._run
+
+    def counted(images, tier="full", **kw):
+        runs.append(tier)
+        return run(images, tier, **kw)
+
+    cascade._run = counted
+    return runs
+
+
+def _mtcnn_main_path(name, cascade, staged) -> dict:
+    """The batch-32 ladder call on staged frames: K1 launches 4 times a tier
+    run (checked on the first call, which may climb the ladder, and on one
+    after), valid outputs, then images/s by CUDA events (2 s warm-up, best
+    of 3 blocks of 5)."""
+    from fdt_torch.ops import nms as nms_op
+
+    runs = _count_tier_runs(cascade)
+    launches, tiers = 0, []
+    for _ in range(2):
+        runs.clear()
+        nms_op.launches.reset()
+        boxes, lms, counts, sat = cascade.detect_device(staged)  # the main path
+        torch.cuda.synchronize()
+        if not runs or nms_op.launches.count != 4 * len(runs):
+            raise AssertionError(f"{name}: {nms_op.launches.count} K1 launches in "
+                                 f"{len(runs)} tier runs {runs} (want 4 a run)")
+        launches += nms_op.launches.count
+        tiers.append(list(runs))
+    b = staged.shape[0]
+    live = torch.arange(boxes.shape[1], device=boxes.device) < counts[:, None]
+    if (boxes.shape != (b, 256, 5) or lms.shape != (b, 256, 10)
+            or not torch.isfinite(boxes[live]).all() or not torch.isfinite(lms[live]).all()
+            or not bool((counts > 0).all())):
+        raise AssertionError(f"{name}: bad output {tuple(boxes.shape)}, counts "
+                             f"{counts.tolist()}")
+    _warm(lambda: cascade.detect_device(staged))
+    rates = _rates(lambda: cascade.detect_device(staged), b)
+    return {"launches": launches, "tiers": tiers, "tier": cascade.last_tier,
+            "rates": rates, "counts": counts.tolist(), "saturated": sat.tolist(),
+            "boxes": boxes, "lms": lms}
+
+
+# kernel name → part of a detect, first match wins (PyTorch's, cuDNN's and
+# cuBLAS's kernel names; K1's are nms_*_kernel)
+KERNEL_PARTS = (("k1", r"nms_\w+_kernel"), ("sort", r"[Ss]ort|[Rr]adix"),
+                ("conv_matmul", r"conv|cudnn|xmma|gemm|cutlass|implicit|winograd|fft"),
+                ("gather_index", r"[Gg]ather|[Ii]ndex|[Ss]catter"))
+
+
+def _time_split(fn, iters: int = 3) -> dict:
+    """One call of fn() by torch.profiler: its host wall ms, the device ms of
+    its kernels by part (KERNEL_PARTS, the rest "elementwise_other"), the
+    share of the wall time in which the card ran none of them (the kernels
+    of one stream do not overlap) and the 8 kernels that took longest.
+    Empty parts when the profiler records no device time."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / iters * 1e3
+    parts, kernels = {}, {}
+    for event in prof.events():
+        if event.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = event.time_range.elapsed_us() / iters / 1e3
+        part = next((p for p, rx in KERNEL_PARTS if re.search(rx, event.name)),
+                    "elementwise_other")
+        parts[part] = parts.get(part, 0.0) + ms
+        kernels[event.name] = kernels.get(event.name, 0.0) + ms
+    device_ms = sum(parts.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "idle_pct": 100 * (1 - device_ms / wall_ms) if parts else None, "parts": parts,
+            "top": top}
+
+
+def phase_mtcnn(device):
+    """MTCNN at bench.py's configuration (480×640, batch 32, the ladder FAST
+    → MID → full): the sparse golden with the global TF32 flags on; the
+    batch-32 main path on both weight settings (4 K1 launches a tier run,
+    images/s, the tier); K1 on the saturated cascade's own per-level
+    candidates (P = 32, N = 8192, segmented), bit-equal to its plain
+    version, timed; detect_batch against detect_face on one frame; then
+    DetectionService("mtcnn") under 4 client threads.  Returns K1's launches
+    on the main path and its largest mask difference."""
+    from fdt_torch.apps.serving import DetectionService, resize_bilinear
+    from fdt_torch.geometry.nms import nms_keep_mask
+    from fdt_torch.ops import nms as nms_op
+
+    t0 = time.perf_counter()
+    sparse = mtcnn_cascade("sparse", device)  # precision="highest"
+    with _tf32(True):  # the global flags on: the cascade turns TF32 off itself
+        golden = check_mtcnn_golden(sparse)
+    _phase("mtcnn_golden", t0, counts=golden["counts"], tier=golden["tier"],
+           max_score_err=f"{golden['score_err']:.3g}", max_px_err=f"{golden['px_err']:.3g}")
+
+    frames = np.random.RandomState(4).randint(0, 256, (MTCNN_BATCH, MTCNN_H, MTCNN_W, 3),
+                                              dtype=np.uint8)
+    staged = torch.from_numpy(frames).to(device)
+    launches = 0
+    cascades = {"sparse": sparse, "saturated": mtcnn_cascade("saturated", device)}
+    outs = {}
+    for setting, cascade in cascades.items():
+        t0 = time.perf_counter()
+        out = outs[setting] = _mtcnn_main_path(f"mtcnn_{setting}", cascade, staged)
+        launches += out["launches"]
+        rates = out["rates"]
+        _phase(f"mtcnn_{setting}", t0, batch=MTCNN_BATCH, size=f"{MTCNN_W}x{MTCNN_H}",
+               images_per_s=f"{max(rates):.2f}", rates=[round(r, 2) for r in rates],
+               spread_pct=f"{_spread(rates):.2f}", tier=out["tier"],
+               tier_runs=out["tiers"], k1_launches_per_call=4 * len(out["tiers"][-1]),
+               k1_launches=out["launches"], counts_min_max=[min(out["counts"]),
+                                                            max(out["counts"])],
+               saturated=sum(out["saturated"]))
+        split = _time_split(lambda: cascade.detect_device(staged))
+        print(f"[mtcnn] {setting} wall_ms={split['wall_ms']:.3f} "
+              f"device_ms={split['device_ms']:.3f} idle_pct="
+              + ("not_measured" if split["idle_pct"] is None else f"{split['idle_pct']:.1f}")
+              + " " + " ".join(f"{k}_ms={v:.3f}" for k, v in sorted(
+                  split["parts"].items(), key=lambda kv: -kv[1])), flush=True)
+        for name, ms in split["top"]:
+            print(f"[mtcnn]   {setting} {ms:8.3f} ms {name[:110]}", flush=True)
+
+    # K1 on the saturated cascade's own per-level candidates
+    t0 = time.perf_counter()
+    saturated = cascades["saturated"]
+    boxes, valid, seg = saturated.pnet_candidates(staged, tier="full")
+
+    def call():
+        return nms_op.nms_keep_tiled(boxes, valid, 0.4, mode="minimum", seg_id=seg)
+
+    keep = call()
+    mask_err = 0.0
+    for p in range(0, MTCNN_BATCH, 2):  # the plain version's [P, N, N] temporaries
+        want = nms_keep_mask(boxes[p:p + 2], valid[p:p + 2], 0.4, mode="minimum",
+                             seg_id=seg[p:p + 2])
+        mask_err = max(mask_err, _mask_err(keep[p:p + 2], want, None))
+    if mask_err != 0:
+        raise AssertionError("K1 != plain on the saturated cascade's MTCNN candidates")
+    pairs = _pairs_needed(boxes, valid, keep, 0.4, "minimum", seg=seg)
+    timed = _kernel_timings(call, pairs, valid)
+    plain_ms = _cuda_ms(lambda: nms_keep_mask(boxes[:2], valid[:2], 0.4, mode="minimum",
+                                              seg_id=seg[:2]), 2)
+    _kernel_line("k1", f"mtcnn-saturated-{MTCNN_BATCH}x{boxes.shape[1]}-seg", timed["split"],
+                 timed["sequence"], ms=f"{timed['ms']:.4f}",
+                 device_ms="not_measured" if timed["device_ms"] is None
+                 else f"{timed['device_ms']:.4f}",
+                 host_ms=f"{timed['host_ms']:.4f}", bound_ms=f"{timed['bound_ms']:.6f}",
+                 bound_by=timed["bound_by"], pairs_needed=pairs,
+                 pairs_computed=_pairs_computed(boxes, valid, keep, 0.4, "minimum", seg=seg),
+                 plain_ms_2x8192=f"{plain_ms:.4f}", valid=int(valid.sum()),
+                 levels=int(seg[valid].unique().numel()))
+
+    # the batch's first frame against detect_face on it alone
+    face_b, face_lm = saturated.detect_face(frames[0])
+    c = outs["saturated"]["counts"][0]
+    err = match_detections(face_b, face_lm, outs["saturated"]["boxes"][0, :c].cpu().numpy(),
+                           outs["saturated"]["lms"][0, :c].cpu().numpy(), 1e-4, 1e-2)
+    _phase("mtcnn_k1", t0, shape=list(boxes.shape), keeps=int(keep.sum()),
+           face_vs_batch_err=[f"{e:.3g}" for e in err], face_count=len(face_b))
+
+    # serving: mixed request sizes resized to the 640×480 frame
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(5)
+    sizes = [(MTCNN_H, MTCNN_W), (720, 1280), (300, 400), (MTCNN_H, MTCNN_W)]
+    images = [rng.randint(0, 256, (*sizes[i % 4], 3), dtype=np.uint8) for i in range(16)]
+    threshold = 0.6
+    svc = DetectionService("mtcnn", sparse, frame_size=(MTCNN_W, MTCNN_H),
+                           threshold=threshold, max_batch=8, max_wait_ms=20)
+    want = []
+    for im in images:  # the direct reference: one frame per call
+        h, w = im.shape[:2]
+        f = im if (h, w) == (MTCNN_H, MTCNN_W) else resize_bilinear(im, MTCNN_W, MTCNN_H)
+        b, lm, counts, _ = sparse.detect_batch(f[None])
+        want.append(svc._mtcnn_rows(b[0, :counts[0]], lm[0, :counts[0]], w, h))
+    runs = _count_tier_runs(sparse)
+    _serve("mtcnn_serving", svc, images, want, threshold, t0,
+           launches_per_batch=lambda: 4 * len(runs))
+    return launches, mask_err
+
+
 def _rows_agree(got: np.ndarray, want: np.ndarray, threshold: float,
                 score_tol: float, px_tol: float) -> bool:
-    """Two [N, 5] pixel-row lists of one frame agree: every row of each has a
-    row of the other within the tolerances, except rows whose score lies
-    within score_tol of the threshold (drift may put them on either side)."""
+    """Two [N, 5] (or, with landmarks, [N, 15]) pixel-row lists of one frame
+    agree: every row of each has a row of the other within the tolerances,
+    except rows whose score lies within score_tol of the threshold (drift
+    may put them on either side)."""
     for a, b in ((got, want), (want, got)):
         for r in a:
             if r[4] < threshold + score_tol:
                 continue
             if not len(b) or not (
-                    (np.abs(b[:, :4] - r[:4]).max(axis=1) <= px_tol)
+                    (np.abs(np.delete(b, 4, 1) - np.delete(r, 4)).max(axis=1) <= px_tol)
                     & (np.abs(b[:, 4] - r[4]) <= score_tol)).any():
                 return False
     return True
 
 
-def _serve(name, svc, images, want, threshold, t0) -> None:
+def _serve(name, svc, images, want, threshold, t0, launches_per_batch=None) -> None:
     """Drive `svc` with `images` from 4 client threads; every answer must
-    agree with its direct call `want[i]`."""
+    agree with its direct call `want[i]`, and K1 must launch once a batch
+    (or launches_per_batch() times in all, read after the run)."""
     from fdt_torch.ops import nms as nms_op
 
     results, latencies, errors = {}, [], []
@@ -1086,8 +1398,10 @@ def _serve(name, svc, images, want, threshold, t0) -> None:
            if not _rows_agree(results[i], want[i], threshold, 1e-4, 0.05)]
     if bad:
         raise AssertionError(f"{name}: answers differ from direct calls: {bad}")
-    if launches != stats["batches"]:
-        raise AssertionError(f"{name}: {stats['batches']} batches but {launches} K1 launches")
+    expected = stats["batches"] if launches_per_batch is None else launches_per_batch()
+    if launches != expected:
+        raise AssertionError(f"{name}: {stats['batches']} batches, {launches} K1 launches "
+                             f"(want {expected})")
     lat = sorted(latencies)
     _phase(name, t0, requests=len(results), p50_ms=f"{lat[len(lat) // 2] * 1e3:.1f}",
            mean_batch=f"{stats['mean_batch_size']:.2f}", batches=stats["batches"],
@@ -1175,6 +1489,7 @@ def main() -> int:
     det32, launches, boxes_err = phase_flagship(device)
     facebox_det, k2_launches = phase_facebox(device)
     phase_variants(device)
+    mtcnn_launches, mtcnn_err = phase_mtcnn(device)
     phase_serving(det32, facebox_det)
 
     # PyTorch has no NMS call (and torchvision is not installed): no library_ms
@@ -1182,7 +1497,8 @@ def main() -> int:
         "name": "nms_tiled (K1)", "route": "cuda",
         "source": "fdt_torch/csrc/nms_tiled.cu",
         "replaces": "fdt/ops/pallas_nms.py:69",
-        "launches": launches, "max_abs_err": max(k1["max_abs_err"], boxes_err),
+        "launches": launches + mtcnn_launches,
+        "max_abs_err": max(k1["max_abs_err"], boxes_err, mtcnn_err),
         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": None,
         "device_ms": k1["device_ms"], "host_ms": k1["host_ms"]}, {

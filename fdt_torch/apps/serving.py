@@ -1,5 +1,5 @@
-"""Micro-batching inference serving (counterpart of fdt/apps/serving.py:41-277,
-the "pyramidbox" and "facebox" families).
+"""Micro-batching inference serving (counterpart of fdt/apps/serving.py:41-301,
+the "pyramidbox", "facebox" and "mtcnn" families).
 
   MicroBatcher       background daemon worker coalescing concurrent requests
                      into batches (the first request opens a window of
@@ -13,8 +13,7 @@ the "pyramidbox" and "facebox" families).
                      padding would only add work), and maps boxes back to
                      each request's pixels.
 
-The HTTP front end and the mtcnn family of fdt/apps/serving.py wait for a
-later slice.
+The HTTP front end of fdt/apps/serving.py waits for a later slice.
 """
 from __future__ import annotations
 
@@ -30,6 +29,7 @@ import torch.nn.functional as F
 
 from fdt_torch.infer.pyramidbox import detections_to_rows
 
+FAMILIES = ("pyramidbox", "facebox", "mtcnn")
 _SENTINEL = object()
 CLOSE_TIMEOUT_S = 30.0
 
@@ -163,20 +163,22 @@ class DetectionService:
     """Batched detection serving over one detector family.
 
     family: "pyramidbox" (a PyramidBoxDetector of any variant, frames of
-    `frame_size`) or "facebox" (a FaceBoxDetector; frames are its config's
-    fixed square input, whatever `frame_size` says).  Requests are BGR uint8
+    `frame_size`), "facebox" (a FaceBoxDetector; frames are its config's
+    fixed square input, whatever `frame_size` says) or "mtcnn" (an
+    MTCNNDeviceCascade, frames of `frame_size`).  Requests are BGR uint8
     images of ANY resolution; results are [N, 5] float32 rows
     [x1, y1, x2, y2, score] in the REQUEST's pixel coordinates (empty [0, 5]
     when nothing is detected: serving drops the eval protocol's
-    [[0, 0, 0, 0, 0.4]] sentinel).
+    [[0, 0, 0, 0, 0.4]] sentinel).  For mtcnn the rows are [N, 15]: box and
+    score, then the 10 landmark coordinates (x, y of each of 5 points).
     """
 
     def __init__(self, family: str, detector, frame_size=(640, 480),
                  threshold: float = 0.4, nms_thresh: float = 0.35,
                  max_batch: int = 32, max_wait_ms: float = 5.0):
-        if family not in ("pyramidbox", "facebox"):
+        if family not in FAMILIES:
             raise ValueError(f"unknown family: {family!r} (this port serves "
-                             "'pyramidbox' and 'facebox')")
+                             f"{', '.join(map(repr, FAMILIES))})")
         self.family = family
         self.detector = detector
         if family == "facebox":  # fixed square input
@@ -220,6 +222,10 @@ class DetectionService:
         if self.family == "facebox":
             return [self._facebox_rows(b, s, *size) for (b, s), size
                     in zip(self.detector.detect_batch(frames), sizes)]
+        if self.family == "mtcnn":
+            boxes, lms, counts, _ = self.detector.detect_batch(frames)
+            return [self._mtcnn_rows(boxes[i, :c], lms[i, :c], *size)
+                    for i, (c, size) in enumerate(zip(counts, sizes))]
         det = self.detector.detect_tensor(frames, conf_thresh=self.threshold,
                                           nms_thresh=self.nms_thresh)
         return [self._pyramidbox_rows(d, *size) for d, size in zip(det, sizes)]
@@ -237,3 +243,16 @@ class DetectionService:
         keep = scores >= self.threshold
         px = boxes[keep] * np.array([w, h, w, h], np.float32)
         return np.column_stack([px, scores[keep]]).astype(np.float32)
+
+    def _mtcnn_rows(self, boxes: np.ndarray, lms: np.ndarray, w: int, h: int) -> np.ndarray:
+        """fdt's _rows_mtcnn: boxes and landmarks scaled from the frame to the
+        request's pixels; rows with score >= threshold."""
+        sx, sy = w / self.frame_w, h / self.frame_h
+        b = boxes.copy()
+        b[:, [0, 2]] *= sx
+        b[:, [1, 3]] *= sy
+        lm = lms.copy()
+        lm[:, 0::2] *= sx
+        lm[:, 1::2] *= sy
+        keep = b[:, 4] >= self.threshold
+        return np.column_stack([b[keep], lm[keep]]).astype(np.float32).reshape(-1, 15)

@@ -1,5 +1,5 @@
-"""Typed configuration for the PyramidBox family and FaceBoxes (copy of
-fdt/config.py:14-136).
+"""Typed configuration for the PyramidBox family, FaceBoxes and MTCNN (copy
+of fdt/config.py:14-160).
 
 The port keeps its own copy instead of importing fdt.config, so that nothing
 of the JAX package is needed at run time.
@@ -111,3 +111,28 @@ FACEBOX = FaceBoxConfig()
 # The reference's alternative decode_tensor post-processing keeps priors whose
 # face probability is strictly above 0.4, then NMS at 0.5 (fdt/config.py:125-136)
 FACEBOX_PINNED = FaceBoxConfig(conf_thresh=0.4)
+
+
+# --- MTCNN (copy of fdt/config.py:139-160) ------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MTCNNConfig:
+    """Cascade thresholds (MTCNN/mtcnn/core/detect.py:73-89)."""
+    min_face_size: float = 12.0
+    stride: int = 2
+    cell_size: int = 12
+    thresholds: Tuple[float, float, float] = (0.6, 0.6, 0.35)
+    scale_factor: float = 0.709
+    pnet_nms_per_level: float = 0.4   # 'Minimum' mode (detect.py:314)
+    pnet_nms_merge: float = 0.6       # 'Union'   mode (detect.py:326)
+    rnet_nms: float = 0.6             # 'Union'   mode (detect.py:431)
+    onet_nms: float = 0.5             # 'Minimum' mode (detect.py:579)
+    # fixed-shape budgets of fdt's TPU formulation (padded candidate counts)
+    max_pnet_boxes_per_level: int = 2048
+    max_pnet_boxes: int = 4096
+    max_rnet_boxes: int = 1024
+    max_onet_boxes: int = 512
+
+
+MTCNN = MTCNNConfig()

@@ -10,13 +10,20 @@ is mechanical:
                        (a depthwise [kH,kW,1,C] → [C,1,kH,kW])
   params/<mod>/bias               → <mod>.bias
   params/<mod>/scale              → <mod>.weight        (BatchNorm γ)
+  params/<mod>/negative_slope ()  → <mod>.weight [1]    (PReLU, one slope)
+  params/<mod>/kernel  [in,out]   → <mod>.weight [out,in] (Dense → Linear)
   batch_stats/<mod>/mean          → <mod>.running_mean
   batch_stats/<mod>/var           → <mod>.running_var
   (and <mod>.num_batches_tracked = 0, which a strict load expects)
 
+A Linear that takes a flattened feature map (MTCNN's RNet.conv4 and
+ONet.conv5) also has its input columns permuted: fdt flattens NHWC, the port
+NCHW as the reference does (the `inverse=True` fixup of
+fdt/models/mtcnn.py:93-113).
+
 Weights are converted in memory at load time; nothing converted is stored.
-Every PyramidBox variant and FaceBoxes load this way (fdt/models/loader.py:
-102-121 for the detector front doors).
+Every PyramidBox variant, FaceBoxes and the MTCNN nets load this way
+(fdt/models/loader.py:102-121 for the detector front doors).
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ import torch
 from torch import nn
 
 from fdt_torch.models.facebox import FaceBox
+from fdt_torch.models.mtcnn import ONet, PNet, RNet
 from fdt_torch.models.pyramidbox_mobile import build_pyramidbox
 
 _LEAF_TO_TORCH = {
@@ -33,6 +41,7 @@ _LEAF_TO_TORCH = {
     "scale": "weight",
     "mean": "running_mean",
     "var": "running_var",
+    "negative_slope": "weight",
 }
 
 
@@ -44,9 +53,13 @@ def _flatten(tree, prefix=()):
             yield prefix + (str(k),), v
 
 
-def from_jax_variables(variables) -> dict[str, torch.Tensor]:
+def from_jax_variables(variables, flatten_chw: dict | None = None
+                       ) -> dict[str, torch.Tensor]:
     """flax {"params", "batch_stats"} tree of numpy arrays → torch state dict
-    (float32 tensors)."""
+    (float32 tensors).  `flatten_chw` maps a Linear's module path to the
+    (C, H, W) of the map it flattens: its kernel's rows come in fdt's (H, W,
+    C) order and are permuted to (C, H, W)."""
+    flatten_chw = flatten_chw or {}
     sd: dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
         for path, leaf in _flatten(variables.get(collection, {})):
@@ -57,6 +70,11 @@ def from_jax_variables(variables) -> dict[str, torch.Tensor]:
                 w = w.transpose(3, 2, 0, 1)
             elif w.ndim == 2:
                 w = w.T
+                if mod in flatten_chw:
+                    c, h, wd = flatten_chw[mod]
+                    w = w.reshape(-1, h, wd, c).transpose(0, 3, 1, 2).reshape(w.shape)
+            elif w.ndim == 0:  # a PReLU's one slope
+                w = w.reshape(1)
             sd[key] = torch.from_numpy(np.ascontiguousarray(w))
             if collection == "batch_stats" and path[-1] == "mean":
                 sd[f"{mod}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
@@ -103,3 +121,21 @@ def load_facebox_detector(weights: str, **kw):
     **kw go to the detector."""
     from fdt_torch.infer.facebox import FaceBoxDetector
     return FaceBoxDetector(_load_strict(FaceBox(), weights), **kw)
+
+
+def load_mtcnn_nets(pnet_vars, rnet_vars, onet_vars) -> tuple[nn.Module, ...]:
+    """(PNet, RNet, ONet) in eval mode, CPU, float32, each loaded strict from
+    its flax variables tree."""
+    nets = []
+    for model, variables in ((PNet(), pnet_vars), (RNet(), rnet_vars), (ONet(), onet_vars)):
+        model.load_state_dict(from_jax_variables(variables, model.flatten_chw), strict=True)
+        nets.append(model.eval())
+    return tuple(nets)
+
+
+def load_mtcnn_cascade(p_path: str, r_path: str, o_path: str, **kw):
+    """An MTCNNDeviceCascade from three variables npz files in fdt's format
+    (PNet, RNet, ONet).  **kw go to the cascade (device=None is the card)."""
+    from fdt_torch.infer.mtcnn_device import MTCNNDeviceCascade
+    return MTCNNDeviceCascade(*load_mtcnn_nets(load_npz(p_path), load_npz(r_path),
+                                               load_npz(o_path)), **kw)

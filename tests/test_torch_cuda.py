@@ -200,3 +200,51 @@ def test_float32_detector_matches_golden_with_the_global_tf32_flags_on(card, tf3
     assert hashlib.sha256(frame.tobytes()).hexdigest() == str(g["frame_sha256"])
     chip_smoke.match_rows(rows, g["rows"], chip_smoke.GOLDEN_ROWS, chip_smoke.GOLDEN_TOL)
     assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+
+
+def test_mtcnn_sparse_golden_on_card(card, tf32_flags_on):
+    """The MTCNN cascade at 480×640 through bench.py's ladder on the sparse
+    golden batch: fdt's counts, flags and tier; scores within 1e-3, boxes and
+    landmarks within 1e-2 px (chip_smoke.check_mtcnn_golden)."""
+    cascade = chip_smoke.mtcnn_cascade("sparse", card)
+    before = nms_op.launches.count
+    chip_smoke.check_mtcnn_golden(cascade)
+    assert nms_op.launches.count - before == 4 * 2  # FAST saturates, MID answers
+    assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+
+
+@pytest.mark.parametrize("crop_impl", ["gather", "matmul"])
+def test_mtcnn_cascade_on_card_equals_cpu(card, crop_impl):
+    """The whole cascade on the card against the port on the CPU, both
+    crop forms, at 120×160 on the saturated weights and FAST_BUDGETS."""
+    from fdt_torch.infer import FAST_BUDGETS, MTCNNDeviceCascade
+    from fdt_torch.models import load_mtcnn_nets
+
+    images = np.stack([chip_smoke.golden_frame(s, 120, 160) for s in (1, 2)])
+    out = {}
+    for device in ("cpu", card):
+        nets = load_mtcnn_nets(*chip_smoke.mtcnn_variables("saturated"))
+        cascade = MTCNNDeviceCascade(*nets, budgets=FAST_BUDGETS, crop_impl=crop_impl,
+                                     device=device)
+        out[str(device)] = cascade.detect_batch(images)
+    cpu, gpu = out["cpu"], out[str(card)]
+    np.testing.assert_array_equal(gpu[2], cpu[2])
+    np.testing.assert_array_equal(gpu[3], cpu[3])
+    for i, c in enumerate(cpu[2]):
+        chip_smoke.match_detections(gpu[0][i, :c], gpu[1][i, :c], cpu[0][i, :c], cpu[1][i, :c],
+                                    1e-4, 1e-2)
+
+
+def test_k1_bit_equal_on_saturated_mtcnn_candidates(card):
+    """K1's segmented path on the saturated cascade's own per-level
+    candidates at 480×640 (N = 8192), one launch for the batch, against its
+    plain version."""
+    cascade = chip_smoke.mtcnn_cascade("saturated", card)
+    frames = np.stack([chip_smoke.golden_frame(s, chip_smoke.MTCNN_H, chip_smoke.MTCNN_W)
+                       for s in (0, 1)])
+    boxes, valid, seg = cascade.pnet_candidates(frames, tier="full")
+    assert boxes.shape == (2, 8192, 4) and bool(valid.all())
+    before = nms_op.launches.count
+    got = nms_op.nms_keep_tiled(boxes, valid, 0.4, mode="minimum", seg_id=seg)
+    assert nms_op.launches.count == before + 1
+    assert torch.equal(got, nms.nms_keep_mask(boxes, valid, 0.4, mode="minimum", seg_id=seg))

@@ -49,7 +49,8 @@ def test_every_module_imports_without_building_kernels():
     names = [m.name for m in pkgutil.walk_packages(fdt_torch.__path__, "fdt_torch.")]
     assert {"fdt_torch.ops.nms", "fdt_torch.apps.serving", "fdt_torch.infer.facebox",
             "fdt_torch.models.facebox", "fdt_torch.models.pyramidbox_mobile",
-            "fdt_torch.anchors.densified"} <= set(names)
+            "fdt_torch.anchors.densified", "fdt_torch.models.mtcnn",
+            "fdt_torch.infer.mtcnn_device"} <= set(names)
     for name in names:
         importlib.import_module(name)
     assert _build._lib is None
