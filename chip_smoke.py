@@ -47,7 +47,17 @@ Phases, each printing one line with its seconds:
                per-level candidates (32 × 8192, segmented) bit-equal to its
                plain version and timed; the batch's first frame against
                detect_face; DetectionService("mtcnn") under 4 threads.
-  8. serving — DetectionService answers 16 requests from 4 threads (float32)
+  8. tracking — bench.py's tracker configuration (64 frames of 480×640 panned
+               6 px a frame, chunks of 16, rows capped at 32, t_max 256): K3
+               (the greedy association scan) against its plain version,
+               records and state bit-equal, on TRACK_EDGES and random streams;
+               K3 timed at bench.py's density beside the plain version on the
+               card; on trained and seeded flagship weights the fused tracker
+               (one K1 call and one K3 launch a chunk), its frames/s and those
+               of the device-rows and host-rows legs, its tracks bit-equal to
+               the unfused path's (also through the grow-and-redo path), and a
+               torch.profiler split of one fused chunk.
+  9. serving — DetectionService answers 16 requests from 4 threads (float32)
                for the pyramidbox family (640²) and the facebox family (mixed
                sizes); each answer agrees with the direct call on its frame,
                up to the summation order of another batch size.
@@ -57,6 +67,7 @@ Any failure exits non-zero; a hang exits non-zero with a traceback.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import faulthandler
 import hashlib
 import itertools
@@ -127,6 +138,170 @@ MTCNN_SHIFTS = {"saturated": {},
 MTCNN_GOLDEN = GOLDEN_DIR / "mtcnn_sparse.npz"
 MTCNN_FRAME_SEEDS = (0, 1)  # the sparse golden's batch
 MTCNN_PX_TOL = 1e-2  # golden boxes and landmarks, pixels
+
+
+# IoU tracking: bench.py's tracker configuration (bench.py:501-571), the
+# fused detect + associate of 64 frames of 480×640 panned 6 px a frame, in
+# chunks of 16, rows capped at 32 a frame, 256 slots to start; the detect's
+# conf threshold is the tracker's score floor (TRACKER's 0.4)
+TRACK_H, TRACK_W, TRACK_FRAMES, TRACK_BATCH = 480, 640, 64, 16
+TRACK_PAN_PX, TRACK_DET_CAP, TRACK_T_MAX = 6, 32, 256
+TRACK_NMS = 0.35
+TRACK_PASSES = 3
+TRACK_WEIGHTS_SEED = 0
+# The fused-against-unfused check runs at bench.py's TRACKER and again at a
+# setting under which the compared tracks are not empty.  TRACKER finishes
+# no track on these frames: the trained weights pass no row of a noise frame
+# at the 0.4 floor (every frame is the sentinel row), and the seeded ones
+# score all 750 rows 1.0 with boxes that are not finite (a coordinate NaN or
+# -inf), so every IoU is NaN and no row extends a track.  At TRACK_CHECK
+# every track that was extended once finishes when it ends, and the flush
+# emits every live one; the trained check detects at a floor that passes
+# about 8 rows a frame, where rows do extend tracks.
+TRACK_CHECK = {"sigma_h": 0.0, "t_min": 1}
+TRACK_CHECK_ROWS = 8
+
+
+def bench_frame(h: int, w: int) -> np.ndarray:
+    """bench.py's frame where its sample image is absent (bench.py:103-109)."""
+    return (np.random.RandomState(0).rand(h, w, 3) * 255).astype(np.uint8)
+
+
+def pan_frames(frame: np.ndarray, frames: int, step: int = TRACK_PAN_PX) -> np.ndarray:
+    """[frames, H, W, 3]: frame k is `frame` shifted left by step·k pixels,
+    the border reflected with its edge repeated, which is bench.py's
+    cv2.warpAffine(frame, [[1, 0, -step·k], [0, 1, 0]], BORDER_REFLECT)."""
+    w = frame.shape[1]
+    ext = np.pad(frame, ((0, 0), (0, step * (frames - 1)), (0, 0)), mode="symmetric")
+    return np.stack([ext[:, step * k:step * k + w] for k in range(frames)])
+
+
+def track_stream(seed: int, frames: int = 40, walkers: int = 6, clutter: float = 1.0,
+                 extent: float = 400.0) -> list:
+    """Synthetic detection stream, [N, 5] float32 rows a frame: drifting
+    boxes, clutter and dropouts.  The defaults are tests/test_tracker.py's
+    _random_stream (:94-117), draw for draw."""
+    rng = np.random.RandomState(seed)
+    walk = [(rng.rand(2) * extent, 20 + rng.rand() * 60, 0.3 + rng.rand() * 0.7)
+            for _ in range(walkers)]
+    stream = []
+    for _ in range(frames):
+        rows = []
+        for i, (c, s, q) in enumerate(walk):
+            if rng.rand() < 0.15:      # dropout
+                continue
+            c = c + rng.randn(2) * 4
+            walk[i] = (c, s, q)
+            rows.append([c[0] - s / 2, c[1] - s / 2, c[0] + s / 2, c[1] + s / 2,
+                         np.clip(q + rng.randn() * 0.1, 0, 1)])
+        for _ in range(rng.poisson(clutter)):
+            c = rng.rand(2) * extent
+            s = 10 + rng.rand() * 40
+            rows.append([c[0], c[1], c[0] + s, c[1] + s, rng.rand() * 0.5])
+        if rng.rand() < 0.07:
+            rows = []                  # empty frame (the silent-drop quirk)
+        stream.append(np.asarray(rows, np.float32).reshape(-1, 5))
+    return stream
+
+
+def pad_rows(rows_list, n: int):
+    """[F, n, 4] boxes, [F, n] scores and [F, n] valid (numpy) from F frames
+    of at most n rows, as DeviceIoUTracker pads them."""
+    f = len(rows_list)
+    boxes = np.zeros((f, n, 4), np.float32)
+    scores = np.zeros((f, n), np.float32)
+    valid = np.zeros((f, n), bool)
+    for i, rows in enumerate(rows_list):
+        rows = np.asarray(rows, np.float32).reshape(-1, 5)
+        boxes[i, :len(rows)] = rows[:, :4]
+        scores[i, :len(rows)] = rows[:, 4]
+        valid[i, :len(rows)] = True
+    return boxes, scores, valid
+
+
+# K3's edges: frames with no rows (the silent drop) and with only the
+# sentinel row; a sentinel-born track meeting a zero-area row (IoU 0/0 =
+# NaN, taken first by the argmax, so no match); exact ties in IoU and in
+# distance; IoU and distance mode on random streams; pad widths N = 1, 32
+# (one lane a detection), 33, 64 and 750 (top_k; lanes loop over N); a
+# chunk that overflows t_max = 8; a walk over more than 64 live tracks.
+TRACK_EDGES = ("empty-frames", "sentinel-only", "nan-sentinel-meets-zero-area", "iou-ties",
+               "distance-ties", "iou-mode", "distance-mode", "n1", "n32", "n33", "n64",
+               "n750", "overflow-t8", "live-over-64")
+SENTINEL_ROW = [0.0, 0.0, 0.0, 0.0, 0.4]
+
+
+def unpad_rows(chunks) -> list:
+    """The [N, 5] rows of every frame of pad_rows chunks, in order."""
+    return [np.column_stack([b[v], s[v]]) for c in chunks for b, s, v in zip(*c)]
+
+
+def track_edge_case(name: str):
+    """One case of TRACK_EDGES: (TrackerConfig, t_max, chunks), each chunk
+    the (boxes, scores, valid) numpy arrays of pad_rows, run in order from
+    empty slots."""
+    from fdt_torch.config import TrackerConfig
+
+    cfg, t_max = TrackerConfig(t_min=2, sigma_h=0.3), 64
+    rows = lambda r: np.asarray(r, np.float32).reshape(-1, 5)  # noqa: E731
+    if name == "empty-frames":
+        stream = track_stream(1, 14)
+        for k in (3, 4, 9):
+            stream[k] = rows([])
+        split, n = 6, 8
+    elif name == "sentinel-only":
+        stream, split, n = [rows([SENTINEL_ROW])] * 8, 3, 1
+    elif name == "nan-sentinel-meets-zero-area":
+        a = [[0, 0, 10, 10, 0.8], [5, 5, 5, 5, 0.9]]   # a box, then a zero-area one
+        b = [[5, 5, 5, 5, 0.9], [1, 0, 11, 10, 0.8]]   # the zero-area one first
+        stream = [rows([SENTINEL_ROW]), rows(a), rows([SENTINEL_ROW]), rows(b), rows(a),
+                  rows([SENTINEL_ROW]), rows([SENTINEL_ROW]), rows(b)]
+        split, n = 4, 2
+    elif name == "iou-ties":
+        # two identical boxes a frame, and a track between two detections of
+        # equal IoU (mirrored shifts): the first index wins
+        box = [10, 10, 20, 20, 0.9]
+        stream = [rows([box, box]), rows([box, box]),
+                  rows([[12, 10, 22, 20, 0.9], [8, 10, 18, 20, 0.7]]),
+                  rows([[10, 10, 20, 20, 0.9], [14, 10, 24, 20, 0.9], [6, 10, 16, 20, 0.9]])]
+        split, n = 2, 3
+    elif name == "distance-ties":
+        cfg = TrackerConfig(use_iou=False, sigma_dis=8.0, t_min=1, sigma_h=0.3)
+        box = [10, 10, 20, 20, 0.9]
+        stream = [rows([box, box]), rows([[13, 10, 23, 20, 0.8], [7, 10, 17, 20, 0.8]]),
+                  rows([box, [10, 13, 20, 23, 0.5], [10, 7, 20, 17, 0.5]])]
+        split, n = 1, 3
+    elif name in ("iou-mode", "distance-mode"):
+        cfg = TrackerConfig(use_iou=name == "iou-mode", t_min=3)
+        stream, split, n = track_stream(7 if name == "iou-mode" else 11), 17, 16
+    elif name == "n1":
+        stream, split, n = [r[:1] for r in track_stream(2, 20)], 9, 1
+    elif name in ("n32", "n33", "n64"):
+        n = int(name[1:])
+        t_max = 2 * n
+        stream = [r[:n] for r in track_stream(n, 20, walkers=n, clutter=3.0, extent=900.0)]
+        split = 7
+    elif name == "n750":
+        t_max, n = 1024, 750
+        stream = [r[:n] for r in track_stream(750, 3, walkers=860, clutter=20.0,
+                                              extent=6000.0)]
+        split = 1
+    elif name == "overflow-t8":
+        # 24 well-separated persistent boxes, three times t_max
+        cfg, t_max = TrackerConfig(t_min=1), 8
+        rng = np.random.RandomState(0)
+        base = np.stack([np.arange(24) * 50.0, np.zeros(24), np.arange(24) * 50.0 + 40,
+                         np.full(24, 40.0), np.full(24, 0.9)], 1).astype(np.float32)
+        stream = [base + rng.rand(*base.shape).astype(np.float32) for _ in range(6)]
+        split, n = 2, 24
+    elif name == "live-over-64":
+        t_max, n = 128, 96
+        stream = [r[:n] for r in track_stream(64, 8, walkers=84, clutter=2.0,
+                                               extent=2500.0)]
+        split = 3
+    else:
+        raise KeyError(name)
+    return cfg, t_max, [pad_rows(stream[:split], n), pad_rows(stream[split:], n)]
 
 
 def mtcnn_variables(setting: str) -> tuple:
@@ -538,11 +713,12 @@ K1_TIMED = {
 }
 
 
-def _device_split(fn, iters: int = 10):
-    """Device time of each `nms_*` CUDA kernel that fn() launches, from
-    torch.profiler: ({kernel: {"us": mean µs a call, "launches": a call}},
-    [[kernel, µs] of each launch of the last call, in order]).  Both empty
-    when the profiler records no device time."""
+def _device_split(fn, iters: int = 10, pattern: str = r"nms_\w+_kernel"):
+    """Device time of each CUDA kernel whose name matches `pattern` (K1's
+    and K2's `nms_*` by default) that fn() launches, from torch.profiler:
+    ({kernel: {"us": mean µs a call, "launches": a call}}, [[kernel, µs] of
+    each launch of the last call, in order]).  Both empty when the profiler
+    records no device time."""
     import re
 
     from torch.profiler import ProfilerActivity, profile
@@ -555,7 +731,7 @@ def _device_split(fn, iters: int = 10):
         torch.cuda.synchronize()
     split, launches = {}, []
     for event in prof.events():
-        name = re.search(r"nms_\w+_kernel", event.name)
+        name = re.search(pattern, event.name)
         if name and event.device_type == torch.autograd.DeviceType.CUDA:
             us = event.time_range.elapsed_us()
             launches.append((event.time_range.start, name.group(0), us))
@@ -1194,8 +1370,9 @@ def _mtcnn_main_path(name, cascade, staged) -> dict:
 
 
 # kernel name → part of a detect, first match wins (PyTorch's, cuDNN's and
-# cuBLAS's kernel names; K1's are nms_*_kernel)
-KERNEL_PARTS = (("k1", r"nms_\w+_kernel"), ("sort", r"[Ss]ort|[Rr]adix"),
+# cuBLAS's kernel names; K1's are nms_*_kernel, K3's track_assoc_kernel)
+KERNEL_PARTS = (("k1", r"nms_\w+_kernel"), ("k3", r"track_assoc_kernel"),
+                ("sort", r"[Ss]ort|[Rr]adix"),
                 ("conv_matmul", r"conv|cudnn|xmma|gemm|cutlass|implicit|winograd|fft"),
                 ("gather_index", r"[Gg]ather|[Ii]ndex|[Ss]catter"))
 
@@ -1337,6 +1514,386 @@ def phase_mtcnn(device):
     _serve("mtcnn_serving", svc, images, want, threshold, t0,
            launches_per_batch=lambda: 4 * len(runs))
     return launches, mask_err
+
+
+def check_k3_chunks(cfg, t_max: int, chunks, device) -> int:
+    """K3 against its plain version on the card: the chunks (pad_rows
+    arrays) run in order from empty slots through both, each from its own
+    state; every record and the state after each chunk must be bit-equal.
+    Returns K3's launches (one a chunk).  Raises AssertionError."""
+    from fdt_torch.ops import track as track_op
+    from fdt_torch.geometry.track import associate_chunk_plain, init_slots
+
+    k3, plain = init_slots(t_max, device), init_slots(t_max, device)
+    before = track_op.launches.count
+    for c, chunk in enumerate(chunks):
+        tensors = [torch.from_numpy(a).to(device) for a in chunk]
+        k3, *got = track_op.associate_chunk(k3, *tensors, cfg)
+        plain, *want = associate_chunk_plain(plain, *tensors, cfg)
+        for name, g, w in zip(("assign", "finish", "spawn", "overflow"), got, want):
+            if not torch.equal(g, w):
+                raise AssertionError(f"K3 != plain: {name} of chunk {c}")
+        for name, g in vars(k3).items():
+            if not torch.equal(g, getattr(plain, name)):
+                raise AssertionError(f"K3 != plain: state {name} after chunk {c}")
+    launches = track_op.launches.count - before
+    if launches != len(chunks):
+        raise AssertionError(f"K3 launched {launches} times for {len(chunks)} chunks")
+    return launches
+
+
+def bench_track_stream():
+    """bench.py's tracking density for K3 alone: 64 frames of about 28
+    walkers and clutter on a 600-px field, rows capped at 32, padded to 32,
+    in chunks of 16: a list of pad_rows chunks."""
+    stream = [r[:TRACK_DET_CAP] for r in track_stream(5, TRACK_FRAMES, walkers=28,
+                                                      clutter=4.0, extent=600.0)]
+    return [pad_rows(stream[c:c + TRACK_BATCH], TRACK_DET_CAP)
+            for c in range(0, TRACK_FRAMES, TRACK_BATCH)]
+
+
+# float32 operations of one IoU against a slot's last box (2 min, 2 max,
+# 2 sub, 2 clamp, 1 mul for the intersection; 4 sub, 2 mul for the areas;
+# add, sub, div; the compare)
+OPS_PER_AFFINITY = 19
+
+
+def k3_work(cfg, t_max: int, chunks) -> dict:
+    """What a K3 run of the chunks needs on this data: the dependent slot
+    steps (frames × live slots visited), the affinities (each step against
+    the detections still unconsumed) and the bytes (each input read once,
+    each output written once).  The steps and affinities are counted in one
+    pass of the host IoUTracker over the same rows: its active list before a
+    frame is K3's live slots in visit order, and a track that stays active
+    consumed one row."""
+    from fdt_torch.track import IoUTracker
+
+    tracker = IoUTracker(cfg)
+    steps = affinities = bytes_moved = 0
+    for boxes, scores, valid in chunks:
+        f, n = valid.shape
+        # slot state in and out, the detections, the records
+        bytes_moved += 2 * (t_max * (16 + 4 + 4 + 4 + 1) + 4) + f * n * (16 + 4 + 1) \
+            + f * t_max * (4 + 1) + f * n * 4 + f * 4
+        for rows in unpad_rows([(boxes, scores, valid)]):
+            before = tracker.active
+            tracker.step(rows)
+            kept = {id(t) for t in tracker.active}
+            matched = 0
+            for t in before:
+                affinities += len(rows) - matched
+                matched += id(t) in kept
+            steps += len(before)
+    return {"steps": steps, "affinities": affinities, "bytes": bytes_moved}
+
+
+def k3_timings(device) -> dict:
+    """K3 on bench_track_stream: ms a chunk by CUDA events (20 runs of the
+    4 chunks after 3), its device ms a chunk (torch.profiler), the wrapper's
+    host ms, the plain version's ms a chunk on the card, and the bound from
+    k3_work."""
+    from fdt_torch.config import TRACKER
+    from fdt_torch.ops import track as track_op
+    from fdt_torch.geometry.track import associate_chunk_plain, init_slots
+
+    chunks = [[torch.from_numpy(a).to(device) for a in c] for c in bench_track_stream()]
+    check_k3_chunks(TRACKER, TRACK_T_MAX, bench_track_stream(), device)
+
+    def run(associate):
+        slots = init_slots(TRACK_T_MAX, device)
+        for c in chunks:
+            slots, *_ = associate(slots, *c, TRACKER)
+
+    k3 = lambda: run(track_op.associate_chunk)  # noqa: E731
+    for _ in range(3):
+        k3()
+    ms = _cuda_ms(k3, 20) / len(chunks)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        k3()
+    host_ms = (time.perf_counter() - t0) / 20 / len(chunks) * 1e3
+    torch.cuda.synchronize()
+    split, _ = _device_split(k3, pattern=r"track_assoc_kernel")
+    device_ms = sum(s["us"] for s in split.values()) / 1e3 / len(chunks) if split else None
+    plain_ms = _cuda_ms(lambda: run(associate_chunk_plain), 1) / len(chunks)
+    work = k3_work(TRACKER, TRACK_T_MAX, bench_track_stream())
+    bound_bytes_ms = work["bytes"] / len(chunks) / PEAK_BYTES_S * 1e3
+    bound_ops_ms = work["affinities"] * OPS_PER_AFFINITY / len(chunks) / PEAK_F32_OPS_S * 1e3
+    return {"ms": ms, "device_ms": device_ms, "host_ms": host_ms, "plain_ms": plain_ms,
+            "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+            "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
+            "steps_per_chunk": work["steps"] / len(chunks),
+            "affinities_per_chunk": work["affinities"] / len(chunks),
+            "bytes_per_chunk": work["bytes"] / len(chunks)}
+
+
+def track_detector(setting: str, device):
+    """The flagship in bench.py's tracker mode (bf16, channels_last,
+    precision "default", budget 5000, top_k 750): "trained" with
+    net_weight/repo_mini.npz, "seeded" with seeded_variables."""
+    from fdt_torch.infer import PyramidBoxDetector
+    from fdt_torch.models import build_pyramidbox, from_jax_variables, load_pyramidbox
+
+    if setting == "trained":
+        model = load_pyramidbox(str(WEIGHTS))
+    else:
+        model = build_pyramidbox("repo")
+        model.load_state_dict(from_jax_variables(
+            seeded_variables(model, TRACK_WEIGHTS_SEED)), strict=True)
+    return PyramidBoxDetector(model, "repo", dtype=torch.bfloat16, device=device,
+                              precision="default")
+
+
+def unfused_tracks(det, chunks, cfg, device_rows: bool = False):
+    """The unfused tracking path at the fused tracker's chunk shapes:
+    detect_tensor (a host read) and detections_to_rows at cfg.score_floor,
+    rows capped at 32, then the host IoUTracker (or, with device_rows,
+    DeviceIoUTracker on the card, bench.py's tracker_device leg).  Returns
+    (tracks, the [N, 5] rows of every frame, live tracks a frame)."""
+    from fdt_torch.infer import detections_to_rows
+    from fdt_torch.track import DeviceIoUTracker, IoUTracker
+
+    h, w = chunks[0].shape[1:3]
+    floor = cfg.score_floor
+    tracker = (DeviceIoUTracker(cfg, t_max=TRACK_T_MAX, device=det.device)
+               if device_rows else IoUTracker(cfg))
+    all_rows, live_n = [], []
+    for chunk in chunks:
+        out = det.detect_tensor(chunk, floor, TRACK_NMS)
+        rows = [detections_to_rows(o, floor, [w, h, w, h])[:TRACK_DET_CAP] for o in out]
+        all_rows += rows
+        if device_rows:
+            tracker.step_chunk(rows)
+        else:
+            for r in rows:
+                tracker.step(r)
+                live_n.append(len(tracker.active))
+    return tracker.flush(), all_rows, live_n
+
+
+def fused_tracker(det, cfg, t_max: int = TRACK_T_MAX):
+    """A new FusedVideoTracker at bench.py's shapes, detecting at the floor."""
+    from fdt_torch.track import FusedVideoTracker
+
+    return FusedVideoTracker(det, cfg, det_cap=TRACK_DET_CAP, threshold=cfg.score_floor,
+                             nms_thresh=TRACK_NMS, t_max=t_max, lookahead=1)
+
+
+def _fused_pass(tracker, chunks) -> list:
+    for chunk in chunks:
+        tracker.step_frames(chunk)
+    return tracker.flush()
+
+
+def rows_floor(det, chunks, rows: int = TRACK_CHECK_ROWS) -> float:
+    """A detection floor that passes about `rows` rows a frame: the median
+    over frames of each frame's rows-th best face score at conf 0.01, moved
+    halfway down to the next lower score of the run, so no score lies on it."""
+    scores = np.concatenate([det.detect_tensor(c, 0.01, TRACK_NMS)[:, 1, :, 0]
+                             for c in chunks])
+    top = float(np.median(scores[:, rows - 1]))
+    lower = scores[scores < top]
+    floor = float(np.float32((top + (lower.max() if lower.size else 0.0)) / 2))
+    if not 0 < floor < top or (lower.size and floor <= lower.max()):
+        raise AssertionError(f"no floor between the scores near {top}")
+    return floor
+
+
+def same_tracks(got: list, want: list) -> bool:
+    """Two track lists are equal: start frames, boxes and max scores, a NaN
+    equal to a NaN (the seeded flagship's boxes hold some, and NaN != NaN in
+    Python's list comparison)."""
+    return len(got) == len(want) and all(
+        g.keys() == w.keys() and g["start_frame"] == w["start_frame"]
+        and np.array_equal(g["bboxes"], w["bboxes"], equal_nan=True)
+        and np.array_equal(g["max_score"], w["max_score"], equal_nan=True)
+        for g, w in zip(got, want))
+
+
+def check_fused(det, chunks, cfg) -> dict:
+    """New fused trackers (t_max 256, and 2 for the grow-and-redo path) and
+    the device-rows leg against the unfused host path: tracks bit-equal
+    (IDs, order, start frames, boxes, max scores).  Raises AssertionError."""
+    want, rows, live_n = unfused_tracks(det, chunks, cfg)
+    big, small = fused_tracker(det, cfg), fused_tracker(det, cfg, t_max=2)
+    for tracker in (big, small):
+        got = _fused_pass(tracker, chunks)
+        if not same_tracks(got, want):
+            raise AssertionError(f"fused tracks (t_max {tracker.t_max}: {len(got)}) != "
+                                 f"unfused ({len(want)}) at {cfg}")
+    device_tracks, _, _ = unfused_tracks(det, chunks, cfg, device_rows=True)
+    if not same_tracks(device_tracks, want):
+        raise AssertionError(f"DeviceIoUTracker rows != host at {cfg}")
+    return {"tracks": len(want), "live": live_n, "redo_t_max": small.t_max,
+            "track_frames": sum(len(t["bboxes"]) for t in want),
+            "rows": [len(r) if r[:, :4].any() else 0 for r in rows],  # the sentinel is 0
+            "nonfinite_rows": sum(int((~np.isfinite(r)).any(axis=1).sum()) for r in rows)}
+
+
+def check_k1_tracking(det, chunk, cfg) -> dict:
+    """K1 on its arguments in one fused tracking chunk at cfg's floor (16
+    images × the face class, N = 5000, out_k 750) against its plain version
+    on the card: the largest mask difference, the valid boxes and the keeps.
+    Raises AssertionError when a mask differs."""
+    from fdt_torch.geometry.nms import nms_keep_mask
+    from fdt_torch.ops import nms as nms_op
+
+    captured = {}
+    kernel = nms_op.nms_keep_tiled
+
+    def keep_inputs(*args, **kwargs):
+        captured.update(args=args, kwargs=kwargs)
+        return kernel(*args, **kwargs)
+
+    nms_op.nms_keep_tiled = keep_inputs
+    try:
+        _fused_pass(fused_tracker(det, cfg), [chunk])
+    finally:
+        nms_op.nms_keep_tiled = kernel
+    boxes, valid, thresh = captured["args"]
+    out_k = captured["kwargs"]["out_k"]
+    if tuple(boxes.shape) != (TRACK_BATCH, 1, 5000, 4) or out_k != 750:
+        raise AssertionError(f"K1 on the tracking path at {tuple(boxes.shape)}, out_k {out_k}")
+    mode = captured["kwargs"].get("mode", "union")
+    keep = kernel(*captured["args"], **captured["kwargs"])
+    err = 0.0
+    for p in range(0, TRACK_BATCH, 4):  # the plain version's [P, N, N] temporaries
+        want = nms_keep_mask(boxes[p:p + 4], valid[p:p + 4], thresh, mode=mode)
+        err = max(err, _mask_err(keep[p:p + 4], want, out_k))
+    if err != 0:
+        raise AssertionError("K1 != plain on the tracking path's boxes")
+    return {"err": err, "valid": int(valid.sum()), "keeps": int(keep.sum())}
+
+
+def phase_tracking(device):
+    """IoU tracking at bench.py's tracker configuration: K3 against its plain
+    version on TRACK_EDGES and random streams, bit-equal, and a tracker on
+    the card growing from t_max 8; K3 timed at bench.py's density; then, on
+    both weight settings, the fused tracker's main path (one K1 wrapper call
+    and one K3 launch a chunk), its frames/s and those of the device-rows and
+    host-rows legs, new fused trackers' tracks bit-equal to the unfused
+    path's (also through the grow-and-redo path) at TRACKER and at
+    TRACK_CHECK, K1 on the path's own boxes against its plain version, and a
+    torch.profiler split of one fused chunk.  Returns (K1 launches, K1's
+    largest mask difference, K3 launches, K3's fields for the JSON line)."""
+    from fdt_torch.config import TRACKER, TrackerConfig
+    from fdt_torch.ops import nms as nms_op
+    from fdt_torch.ops import track as track_op
+    from fdt_torch.track import DeviceIoUTracker, track_detections
+
+    t0 = time.perf_counter()
+    checked = 0
+    for name in TRACK_EDGES:
+        checked += check_k3_chunks(*track_edge_case(name), device)
+    for seed in (0, 7, 11, 13):
+        for use_iou in (True, False):
+            stream = track_stream(seed)
+            chunks = [pad_rows(stream[:17], 16), pad_rows(stream[17:], 16)]
+            checked += check_k3_chunks(TrackerConfig(use_iou=use_iou, t_min=3), 64, chunks,
+                                       device)
+    # a tracker on the card that outgrows t_max = 8, against the host tracker
+    cfg, _, chunks = track_edge_case("overflow-t8")
+    rows = unpad_rows(chunks)
+    grown = DeviceIoUTracker(cfg, t_max=8, device=device)
+    grown.step_chunk(rows)
+    if grown.flush() != track_detections(rows, cfg) or grown.t_max < 24:
+        raise AssertionError(f"DeviceIoUTracker on the card (grown to {grown.t_max}) != host")
+    _phase("tracking_k3", t0, edges=len(TRACK_EDGES), chunks_checked=checked,
+           grown_t_max=grown.t_max)
+
+    t0 = time.perf_counter()
+    k3 = k3_timings(device)
+    print(f"[k3] bench-16x32-t256 ms={k3['ms']:.4f} device_ms="
+          + ("not_measured" if k3["device_ms"] is None else f"{k3['device_ms']:.4f}")
+          + f" host_ms={k3['host_ms']:.4f} plain_ms={k3['plain_ms']:.4f}"
+          f" bound_ms={k3['bound_ms']:.7f} bound_by={k3['bound_by']}"
+          f" steps_per_chunk={k3['steps_per_chunk']:.2f}"
+          f" affinities_per_chunk={k3['affinities_per_chunk']:.1f}"
+          f" bytes_per_chunk={k3['bytes_per_chunk']:.0f}", flush=True)
+    _phase("tracking_k3_timed", t0, k3_ms=f"{k3['ms']:.4f}", plain_ms=f"{k3['plain_ms']:.4f}")
+
+    seq = pan_frames(bench_frame(TRACK_H, TRACK_W), TRACK_FRAMES)
+    chunks = [torch.from_numpy(seq[c:c + TRACK_BATCH]).to(device)
+              for c in range(0, TRACK_FRAMES, TRACK_BATCH)]
+    k1_launches = k3_launches = 0
+    k1_err = 0.0
+    for setting in ("trained", "seeded"):
+        t0 = time.perf_counter()
+        det = track_detector(setting, device)
+        tracker = fused_tracker(det, TRACKER)
+        _fused_pass(tracker, chunks[:1])       # first use: build and warm
+        _warm(lambda: _fused_pass(tracker, chunks))
+        nms_op.launches.reset()
+        nms_op.greedy_launches.reset()
+        track_op.launches.reset()
+        _fused_pass(tracker, chunks)           # the main path
+        k1, k3_n = nms_op.launches.count, track_op.launches.count
+        if k1 != len(chunks) or k3_n != len(chunks) or nms_op.greedy_launches.count:
+            raise AssertionError(f"tracking {setting}: {k1} K1 calls and {k3_n} K3 launches "
+                                 f"for {len(chunks)} chunks (want 1 and 1 a chunk)")
+        k1_launches += k1
+        k3_launches += k3_n
+        rates = {}
+        for leg, run in (("fused", lambda: _fused_pass(tracker, chunks)),
+                         ("device_rows", lambda: unfused_tracks(det, chunks, TRACKER,
+                                                                device_rows=True)),
+                         ("host_rows", lambda: unfused_tracks(det, chunks, TRACKER))):
+            passes = []
+            for _ in range(TRACK_PASSES):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                passes.append(TRACK_FRAMES / (time.perf_counter() - t))
+            rates[leg] = passes
+        # new fused trackers' tracks against the unfused path's (same_tracks),
+        # at bench.py's TRACKER and at TRACK_CHECK, whose tracks are not empty
+        main = check_fused(det, chunks, TRACKER)
+        floor = TRACKER.score_floor if setting == "seeded" else rows_floor(det, chunks)
+        check = check_fused(det, chunks, dataclasses.replace(TRACKER, score_floor=floor,
+                                                             **TRACK_CHECK))
+        extended = check["track_frames"] - check["tracks"]
+        if not check["tracks"] or (setting == "trained" and not extended):
+            raise AssertionError(f"tracking {setting}: the check at {TRACK_CHECK} and floor "
+                                 f"{floor} finished {check['tracks']} tracks, {extended} "
+                                 "extensions")
+        # K1 on the path's own boxes: seeded at the main floor (5000 valid,
+        # boxes not finite), trained at the check's (boxes that suppress)
+        k1_check = check_k1_tracking(det, chunks[0], TRACKER if setting == "seeded"
+                                     else dataclasses.replace(TRACKER, score_floor=floor))
+        k1_err = max(k1_err, k1_check["err"])
+        _phase(f"tracking_{setting}", t0, frames=TRACK_FRAMES, batch=TRACK_BATCH,
+               size=f"{TRACK_W}x{TRACK_H}", frames_per_s=f"{max(rates['fused']):.2f}",
+               rates=[round(r, 2) for r in rates["fused"]],
+               spread_pct=f"{_spread(rates['fused']):.2f}",
+               device_rows_frames_per_s=f"{max(rates['device_rows']):.2f}",
+               device_rows_rates=[round(r, 2) for r in rates["device_rows"]],
+               host_rows_frames_per_s=f"{max(rates['host_rows']):.2f}",
+               host_rows_rates=[round(r, 2) for r in rates["host_rows"]],
+               mean_rows=f"{np.mean(main['rows']):.2f}",
+               mean_live=f"{np.mean(main['live']):.2f}",
+               nonfinite_rows=main["nonfinite_rows"],
+               tracks_finished=main["tracks"], k1_calls_per_chunk=k1 // len(chunks),
+               k3_launches_per_chunk=k3_n // len(chunks), redo_t_max=main["redo_t_max"],
+               check_floor=floor, check_mean_rows=f"{np.mean(check['rows']):.2f}",
+               check_mean_live=f"{np.mean(check['live']):.2f}",
+               check_tracks=check["tracks"], check_extensions=extended,
+               check_redo_t_max=check["redo_t_max"], k1_check_valid=k1_check["valid"],
+               k1_check_keeps=k1_check["keeps"], k1_check_mask_err=k1_check["err"])
+        nms_op.launches.reset()
+        track_op.launches.reset()
+        split = _time_split(lambda: tracker.step_frames(chunks[0]))
+        tracker.flush()
+        print(f"[tracking] {setting} chunk={TRACK_BATCH}x{TRACK_H}x{TRACK_W} "
+              f"wall_ms={split['wall_ms']:.3f} device_ms={split['device_ms']:.3f} idle_pct="
+              + ("not_measured" if split["idle_pct"] is None else f"{split['idle_pct']:.1f}")
+              + f" k1_calls={nms_op.launches.count} k3_launches={track_op.launches.count} "
+              + " ".join(f"{k}_ms={v:.3f}" for k, v in sorted(
+                  split["parts"].items(), key=lambda kv: -kv[1])), flush=True)
+        for name, ms in split["top"]:
+            print(f"[tracking]   {setting} {ms:8.3f} ms {name[:110]}", flush=True)
+    return k1_launches, k1_err, k3_launches, k3
 
 
 def _rows_agree(got: np.ndarray, want: np.ndarray, threshold: float,
@@ -1490,15 +2047,17 @@ def main() -> int:
     facebox_det, k2_launches = phase_facebox(device)
     phase_variants(device)
     mtcnn_launches, mtcnn_err = phase_mtcnn(device)
+    track_k1_launches, track_k1_err, k3_launches, k3 = phase_tracking(device)
     phase_serving(det32, facebox_det)
 
-    # PyTorch has no NMS call (and torchvision is not installed): no library_ms
+    # PyTorch has no NMS call (and torchvision is not installed) and no
+    # greedy-association call: no library_ms
     print(json.dumps({"kernels": [{
         "name": "nms_tiled (K1)", "route": "cuda",
         "source": "fdt_torch/csrc/nms_tiled.cu",
         "replaces": "fdt/ops/pallas_nms.py:69",
-        "launches": launches + mtcnn_launches,
-        "max_abs_err": max(k1["max_abs_err"], boxes_err, mtcnn_err),
+        "launches": launches + mtcnn_launches + track_k1_launches,
+        "max_abs_err": max(k1["max_abs_err"], boxes_err, mtcnn_err, track_k1_err),
         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": None,
         "device_ms": k1["device_ms"], "host_ms": k1["host_ms"]}, {
@@ -1508,7 +2067,14 @@ def main() -> int:
         "launches": k2_launches, "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"], "library_ms": None,
-        "device_ms": k2["device_ms"], "host_ms": k2["host_ms"]}]}))
+        "device_ms": k2["device_ms"], "host_ms": k2["host_ms"]}, {
+        "name": "track_assoc (K3)", "route": "cuda",
+        "source": "fdt_torch/csrc/track_assoc.cu",
+        "replaces": "fdt/track/device_tracker.py:93",
+        "launches": k3_launches, "max_abs_err": 0.0,  # bit-equal, or the phase raised
+        "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"], "library_ms": None,
+        "device_ms": k3["device_ms"], "host_ms": k3["host_ms"]}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -1,5 +1,5 @@
-"""Typed configuration for the PyramidBox family, FaceBoxes and MTCNN (copy
-of fdt/config.py:14-160).
+"""Typed configuration for the PyramidBox family, FaceBoxes, MTCNN and the
+IoU tracker (copy of fdt/config.py:14-175).
 
 The port keeps its own copy instead of importing fdt.config, so that nothing
 of the JAX package is needed at run time.
@@ -136,3 +136,20 @@ class MTCNNConfig:
 
 
 MTCNN = MTCNNConfig()
+
+
+# --- IoU tracker (copy of fdt/config.py:163-175) ------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class TrackerConfig:
+    """Greedy IoU tracker thresholds (iouTracke_cal.py:22-30)."""
+    use_iou: bool = True
+    sigma_iou: float = 0.4
+    sigma_dis: float = 8.0
+    sigma_h: float = 0.6
+    t_min: int = 5
+    score_floor: float = 0.4   # detection score floor of the video tracking loop
+
+
+TRACKER = TrackerConfig()

@@ -44,6 +44,11 @@ SIGNATURES = {
     "fdt_nms_greedy_cluster": [],
     # n → clusters the card runs at once for problems of n boxes (< 0: CUDA error)
     "fdt_nms_greedy_max_clusters": [_I],
+    # slot state in (last_box, max_score, length, order, alive, next_key),
+    # boxes, scores, valid, slot state out (the same six), assign, finish,
+    # spawn, overflow, scratch; t, f, n, sigma_iou, sigma_dis, sigma_h,
+    # t_min, use_iou, stream
+    "fdt_track_associate": [_P] * 20 + [_I, _I, _I, _F, _F, _F, _I, _I, _P],
 }
 
 _lock = threading.Lock()

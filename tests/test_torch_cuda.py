@@ -248,3 +248,57 @@ def test_k1_bit_equal_on_saturated_mtcnn_candidates(card):
     got = nms_op.nms_keep_tiled(boxes, valid, 0.4, mode="minimum", seg_id=seg)
     assert nms_op.launches.count == before + 1
     assert torch.equal(got, nms.nms_keep_mask(boxes, valid, 0.4, mode="minimum", seg_id=seg))
+
+
+@pytest.mark.parametrize("name", chip_smoke.TRACK_EDGES)
+def test_track_kernel_bit_equal_to_plain_at_its_edges(card, name):
+    """K3 on chip_smoke.TRACK_EDGES: frames with no rows and with only the
+    sentinel row, the NaN of a sentinel-born track meeting a zero-area row,
+    ties in IoU and distance, both modes, pad widths 1, 32, 33, 64 and 750,
+    a chunk that overflows t_max = 8, more than 64 live tracks.  Every
+    record and the state after each chunk bit-equal, one launch a chunk."""
+    cfg, t_max, chunks = chip_smoke.track_edge_case(name)
+    assert chip_smoke.check_k3_chunks(cfg, t_max, chunks, card) == len(chunks)
+
+
+def test_fused_tracker_on_card_equals_its_unfused_path(card):
+    """FusedVideoTracker (detect, post and K3 on the card, one read a chunk)
+    against detect_tensor → detections_to_rows → the host IoUTracker at the
+    same chunk shapes, new trackers at t_max 256 and, through the
+    grow-and-redo path, 2 (chip_smoke.check_fused): seeded try3 at 128², a
+    frame rolled 3 px a frame, two chunks of 3 frames, at chip_smoke's
+    TRACK_CHECK setting; the tracks compared are not empty and extend."""
+    import dataclasses
+
+    from fdt_torch.config import TRACKER
+    from fdt_torch.infer import PyramidBoxDetector
+    from fdt_torch.models import build_pyramidbox, from_jax_variables
+
+    model = build_pyramidbox("try3")
+    model.load_state_dict(from_jax_variables(chip_smoke.seeded_variables(model, 0)),
+                          strict=True)
+    det = PyramidBoxDetector(model, "try3", device=card)
+    base = np.random.RandomState(7).randint(0, 255, (128, 128, 3), np.uint8)
+    frames = np.stack([np.roll(base, 3 * f, axis=1) for f in range(6)])
+    chunks = [torch.from_numpy(frames[c:c + 3]).to(card) for c in (0, 3)]
+    got = chip_smoke.check_fused(det, chunks, dataclasses.replace(TRACKER,
+                                                                  **chip_smoke.TRACK_CHECK))
+    assert min(got["rows"]) > 0 and got["track_frames"] > got["tracks"] > 0
+    assert got["redo_t_max"] > 2
+
+
+def test_track_wrapper_rejects_what_the_kernel_does_not_take(card):
+    from fdt_torch.config import TRACKER
+    from fdt_torch.ops import track as track_op
+    from fdt_torch.geometry.track import init_slots
+
+    _, t_max, chunks = chip_smoke.track_edge_case("iou-mode")
+    boxes, scores, valid = (torch.from_numpy(a).to(card) for a in chunks[0])
+    slots = init_slots(t_max, card)
+    with pytest.raises(ValueError, match="float32"):
+        track_op.associate_chunk(slots, boxes.double(), scores, valid, TRACKER)
+    with pytest.raises(ValueError, match="boxes on cpu"):
+        track_op.associate_chunk(slots, boxes.cpu(), scores, valid, TRACKER)
+    with pytest.raises(ValueError, match="contiguous"):
+        track_op.associate_chunk(slots, boxes.transpose(0, 1).contiguous().transpose(0, 1),
+                                 scores, valid, TRACKER)

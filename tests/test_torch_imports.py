@@ -50,7 +50,9 @@ def test_every_module_imports_without_building_kernels():
     assert {"fdt_torch.ops.nms", "fdt_torch.apps.serving", "fdt_torch.infer.facebox",
             "fdt_torch.models.facebox", "fdt_torch.models.pyramidbox_mobile",
             "fdt_torch.anchors.densified", "fdt_torch.models.mtcnn",
-            "fdt_torch.infer.mtcnn_device"} <= set(names)
+            "fdt_torch.infer.mtcnn_device", "fdt_torch.track.iou_tracker",
+            "fdt_torch.track.device_tracker", "fdt_torch.track.fused",
+            "fdt_torch.ops.track", "fdt_torch.geometry.track"} <= set(names)
     for name in names:
         importlib.import_module(name)
     assert _build._lib is None
