@@ -49,10 +49,14 @@ Phases, each printing one line with its seconds:
                detect_face; DetectionService("mtcnn") under 4 threads.
   8. tracking — bench.py's tracker configuration (64 frames of 480×640 panned
                6 px a frame, chunks of 16, rows capped at 32, t_max 256): K3
-               (the greedy association scan) against its plain version,
-               records and state bit-equal, on TRACK_EDGES and random streams;
-               K3 timed at bench.py's density beside the plain version on the
-               card; on trained and seeded flagship weights the fused tracker
+               (the greedy association scan; a shared-memory variant and a
+               device-memory one for shapes past it) against its plain
+               version, records and state bit-equal, on TRACK_EDGES and random
+               streams, and on a tracker that grows past the shared-memory
+               variant (both variants launched); K3 timed at bench.py's
+               density and the device-memory variant at t-over-smem, beside
+               the plain version on the card; on trained and seeded flagship
+               weights the fused tracker
                (one K1 call and one K3 launch a chunk), its frames/s and those
                of the device-rows and host-rows legs, its tracks bit-equal to
                the unfused path's (also through the grow-and-redo path), and a
@@ -223,11 +227,16 @@ def pad_rows(rows_list, n: int):
 # sentinel row; a sentinel-born track meeting a zero-area row (IoU 0/0 =
 # NaN, taken first by the argmax, so no match); exact ties in IoU and in
 # distance; IoU and distance mode on random streams; pad widths N = 1, 32
-# (one lane a detection), 33, 64 and 750 (top_k; lanes loop over N); a
-# chunk that overflows t_max = 8; a walk over more than 64 live tracks.
+# (one detection a lane), 33, 64 and 750 (top_k; 32 a lane); a chunk that
+# overflows t_max = 8; a walk over more than 64 live tracks; an IoU of -0.0
+# (degenerate boxes) tied with +0.0 at a match; infinite box coordinates
+# (infinite and NaN affinities) in both modes; a T whose state does not fit
+# in shared memory (the device-memory variant); more live slots than one
+# tile of affinities holds.
 TRACK_EDGES = ("empty-frames", "sentinel-only", "nan-sentinel-meets-zero-area", "iou-ties",
                "distance-ties", "iou-mode", "distance-mode", "n1", "n32", "n33", "n64",
-               "n750", "overflow-t8", "live-over-64")
+               "n750", "overflow-t8", "live-over-64", "signed-zero", "inf-boxes",
+               "inf-boxes-distance", "t-over-smem", "tile-rows")
 SENTINEL_ROW = [0.0, 0.0, 0.0, 0.0, 0.4]
 
 
@@ -298,6 +307,40 @@ def track_edge_case(name: str):
         t_max, n = 128, 96
         stream = [r[:n] for r in track_stream(64, 8, walkers=84, clutter=2.0,
                                                extent=2500.0)]
+        split = 3
+    elif name == "signed-zero":
+        # a box of negative area (x2 < x1) against a last box of smaller
+        # area: inter 0, union negative, IoU -0.0, tied with a far box's
+        # +0.0; sigma_iou < 0, so a zero matches and the tie decides which
+        # (frame 1: -0.0 first; frame 2: +0.0 first, then -0.0)
+        cfg = TrackerConfig(sigma_iou=-0.5, t_min=1, sigma_h=0.3)
+        stream = [rows([[0, 0, 5, 5, 0.9]]),
+                  rows([[10, 0, 0, 10, 0.7], [100, 100, 110, 110, 0.8]]),
+                  rows([[300, 300, 320, 320, 0.6], [500, 500, 505, 505, 0.9]]),
+                  rows([[600, 600, 605, 605, 0.5], [20, 0, 10, 10, 0.8], [5, 5, 0, 0, 0.4]]),
+                  rows([[10, 0, 0, 10, 0.7], [100, 100, 110, 110, 0.8], [0, 0, 5, 5, 0.9]]),
+                  rows([[300, 300, 320, 320, 0.6], [500, 500, 505, 505, 0.9],
+                        [7, 3, 1, 1, 0.5]])]
+        split, n = 3, 3
+    elif name in ("inf-boxes", "inf-boxes-distance"):
+        cfg = TrackerConfig(use_iou=name == "inf-boxes", t_min=1, sigma_h=0.3)
+        inf = np.inf
+        frame = [[0, 0, 10, 10, 0.9], [20, 0, 30, 10, 0.8], [0, 0, inf, 10, 0.7],
+                 [-inf, -inf, inf, inf, 0.6], [inf, inf, inf, inf, 0.5], [-inf, 0, 10, 10, 0.4]]
+        rng = np.random.RandomState(5)
+        stream = [rows([frame[i] for i in rng.permutation(6)[:4 + k % 3]]) for k in range(8)]
+        split, n = 4, 6
+    elif name == "t-over-smem":
+        # the slot state alone (41 B a slot) is past the 227 KB of shared
+        # memory a block may take
+        t_max, n = 6144, 32
+        stream = [r[:n] for r in track_stream(21, 10, walkers=24, clutter=3.0, extent=900.0)]
+        split = 5
+    elif name == "tile-rows":
+        # about 170 live slots against tiles of 97 rows (N = 256, T = 512)
+        t_max, n = 512, 256
+        stream = [r[:n] for r in track_stream(97, 6, walkers=200, clutter=4.0,
+                                               extent=3000.0)]
         split = 3
     else:
         raise KeyError(name)
@@ -1369,9 +1412,11 @@ def _mtcnn_main_path(name, cascade, staged) -> dict:
             "boxes": boxes, "lms": lms}
 
 
+# K3's kernels, both variants (and the one of a checkout from before them)
+K3_KERNELS = r"track_assoc_(?:smem_|global_)?kernel"
 # kernel name → part of a detect, first match wins (PyTorch's, cuDNN's and
-# cuBLAS's kernel names; K1's are nms_*_kernel, K3's track_assoc_kernel)
-KERNEL_PARTS = (("k1", r"nms_\w+_kernel"), ("k3", r"track_assoc_kernel"),
+# cuBLAS's kernel names; K1's are nms_*_kernel)
+KERNEL_PARTS = (("k1", r"nms_\w+_kernel"), ("k3", K3_KERNELS),
                 ("sort", r"[Ss]ort|[Rr]adix"),
                 ("conv_matmul", r"conv|cudnn|xmma|gemm|cutlass|implicit|winograd|fft"),
                 ("gather_index", r"[Gg]ather|[Ii]ndex|[Ss]catter"))
@@ -1516,16 +1561,26 @@ def phase_mtcnn(device):
     return launches, mask_err
 
 
+def k3_launches() -> int:
+    """K3's launches so far, both variants (a checkout from before the
+    device-memory variant has one counter)."""
+    from fdt_torch.ops import track as track_op
+
+    counters = (track_op.launches, getattr(track_op, "global_launches", None))
+    return sum(c.count for c in counters if c is not None)
+
+
 def check_k3_chunks(cfg, t_max: int, chunks, device) -> int:
     """K3 against its plain version on the card: the chunks (pad_rows
     arrays) run in order from empty slots through both, each from its own
     state; every record and the state after each chunk must be bit-equal.
-    Returns K3's launches (one a chunk).  Raises AssertionError."""
+    Returns K3's launches (one a chunk, either variant).  Raises
+    AssertionError."""
     from fdt_torch.ops import track as track_op
     from fdt_torch.geometry.track import associate_chunk_plain, init_slots
 
     k3, plain = init_slots(t_max, device), init_slots(t_max, device)
-    before = track_op.launches.count
+    before = k3_launches()
     for c, chunk in enumerate(chunks):
         tensors = [torch.from_numpy(a).to(device) for a in chunk]
         k3, *got = track_op.associate_chunk(k3, *tensors, cfg)
@@ -1536,7 +1591,7 @@ def check_k3_chunks(cfg, t_max: int, chunks, device) -> int:
         for name, g in vars(k3).items():
             if not torch.equal(g, getattr(plain, name)):
                 raise AssertionError(f"K3 != plain: state {name} after chunk {c}")
-    launches = track_op.launches.count - before
+    launches = k3_launches() - before
     if launches != len(chunks):
         raise AssertionError(f"K3 launched {launches} times for {len(chunks)} chunks")
     return launches
@@ -1561,15 +1616,15 @@ OPS_PER_AFFINITY = 19
 def k3_work(cfg, t_max: int, chunks) -> dict:
     """What a K3 run of the chunks needs on this data: the dependent slot
     steps (frames × live slots visited), the affinities (each step against
-    the detections still unconsumed) and the bytes (each input read once,
-    each output written once).  The steps and affinities are counted in one
+    the detections still unconsumed), the bytes (each input read once, each
+    output written once) and the most live slots a frame.  The steps and affinities are counted in one
     pass of the host IoUTracker over the same rows: its active list before a
     frame is K3's live slots in visit order, and a track that stays active
     consumed one row."""
     from fdt_torch.track import IoUTracker
 
     tracker = IoUTracker(cfg)
-    steps = affinities = bytes_moved = 0
+    steps = affinities = bytes_moved = most_live = 0
     for boxes, scores, valid in chunks:
         f, n = valid.shape
         # slot state in and out, the detections, the records
@@ -1584,25 +1639,60 @@ def k3_work(cfg, t_max: int, chunks) -> dict:
                 affinities += len(rows) - matched
                 matched += id(t) in kept
             steps += len(before)
-    return {"steps": steps, "affinities": affinities, "bytes": bytes_moved}
+            most_live = max(most_live, len(before))
+    return {"steps": steps, "affinities": affinities, "bytes": bytes_moved,
+            "most_live": most_live}
 
 
-def k3_timings(device) -> dict:
-    """K3 on bench_track_stream: ms a chunk by CUDA events (20 runs of the
-    4 chunks after 3), its device ms a chunk (torch.profiler), the wrapper's
-    host ms, the plain version's ms a chunk on the card, and the bound from
-    k3_work."""
+def k3_rows(t_max: int, n: int) -> int:
+    """Rows a tile of affinities K3 takes at T = t_max, N = n on the current
+    card, by the kernel's own plan (0: its device-memory variant runs)."""
+    from fdt_torch.ops._build import library
+
+    rows = library().fdt_track_rows(t_max, n)
+    if rows < 0:
+        raise RuntimeError(f"fdt_track_rows: CUDA error {-rows}")
+    return rows
+
+
+# K3 timed (profile_nms.py --kernel k3; chip_smoke times the first): F = 16
+# frames a chunk, rows capped at N and padded to N, T slots
+def k3_timed_case(name: str):
+    """(TrackerConfig, t_max, chunks) of a K3_TIMED case."""
     from fdt_torch.config import TRACKER
+
+    if name == "bench-16x32-t256":
+        return TRACKER, TRACK_T_MAX, bench_track_stream()
+    frames, n, t_max, stream = {
+        "n64-t256": (64, 64, 256, lambda: track_stream(64, 64, walkers=56, clutter=8.0,
+                                                       extent=900.0)),
+        "n750-t1024": (16, 750, 1024, lambda: track_stream(750, 16, walkers=860, clutter=20.0,
+                                                           extent=6000.0))}[name]
+    rows = [r[:n] for r in stream()]
+    return TRACKER, t_max, [pad_rows(rows[c:c + TRACK_BATCH], n)
+                            for c in range(0, frames, TRACK_BATCH)]
+
+
+K3_TIMED = ("bench-16x32-t256", "n64-t256", "n750-t1024")
+
+
+def k3_timings(device, cfg, t_max: int, chunks, plain: bool = True) -> dict:
+    """K3 on the chunks (pad_rows arrays, run in order from empty slots): ms
+    a chunk by CUDA events (20 runs of the chunks after 3), its device ms a
+    chunk (torch.profiler), the wrapper's host ms, the plain version's ms a
+    chunk on the card (with plain, after holding K3 to it bit for bit on
+    the same chunks), and the bound from k3_work."""
     from fdt_torch.ops import track as track_op
     from fdt_torch.geometry.track import associate_chunk_plain, init_slots
 
-    chunks = [[torch.from_numpy(a).to(device) for a in c] for c in bench_track_stream()]
-    check_k3_chunks(TRACKER, TRACK_T_MAX, bench_track_stream(), device)
+    tensors = [[torch.from_numpy(a).to(device) for a in c] for c in chunks]
+    if plain:
+        check_k3_chunks(cfg, t_max, chunks, device)
 
     def run(associate):
-        slots = init_slots(TRACK_T_MAX, device)
-        for c in chunks:
-            slots, *_ = associate(slots, *c, TRACKER)
+        slots = init_slots(t_max, device)
+        for c in tensors:
+            slots, *_ = associate(slots, *c, cfg)
 
     k3 = lambda: run(track_op.associate_chunk)  # noqa: E731
     for _ in range(3):
@@ -1614,18 +1704,92 @@ def k3_timings(device) -> dict:
         k3()
     host_ms = (time.perf_counter() - t0) / 20 / len(chunks) * 1e3
     torch.cuda.synchronize()
-    split, _ = _device_split(k3, pattern=r"track_assoc_kernel")
+    split, _ = _device_split(k3, pattern=K3_KERNELS)
     device_ms = sum(s["us"] for s in split.values()) / 1e3 / len(chunks) if split else None
-    plain_ms = _cuda_ms(lambda: run(associate_chunk_plain), 1) / len(chunks)
-    work = k3_work(TRACKER, TRACK_T_MAX, bench_track_stream())
+    plain_ms = _cuda_ms(lambda: run(associate_chunk_plain), 1) / len(chunks) if plain else None
+    work = k3_work(cfg, t_max, chunks)
     bound_bytes_ms = work["bytes"] / len(chunks) / PEAK_BYTES_S * 1e3
     bound_ops_ms = work["affinities"] * OPS_PER_AFFINITY / len(chunks) / PEAK_F32_OPS_S * 1e3
     return {"ms": ms, "device_ms": device_ms, "host_ms": host_ms, "plain_ms": plain_ms,
             "bound_ms": max(bound_bytes_ms, bound_ops_ms),
             "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
-            "steps_per_chunk": work["steps"] / len(chunks),
+            "kernels": sorted(split), "steps_per_chunk": work["steps"] / len(chunks),
             "affinities_per_chunk": work["affinities"] / len(chunks),
             "bytes_per_chunk": work["bytes"] / len(chunks)}
+
+
+def _k3_line(tag: str, k3: dict) -> None:
+    print(f"[k3] {tag} ms={k3['ms']:.4f} device_ms="
+          + ("not_measured" if k3["device_ms"] is None else f"{k3['device_ms']:.4f}")
+          + f" host_ms={k3['host_ms']:.4f} plain_ms="
+          + ("not_measured" if k3["plain_ms"] is None else f"{k3['plain_ms']:.4f}")
+          + f" bound_ms={k3['bound_ms']:.7f} bound_by={k3['bound_by']}"
+          f" steps_per_chunk={k3['steps_per_chunk']:.2f}"
+          f" affinities_per_chunk={k3['affinities_per_chunk']:.1f}"
+          f" bytes_per_chunk={k3['bytes_per_chunk']:.0f}"
+          f" kernels={','.join(k3['kernels'])}",
+          flush=True)
+
+
+def k3_growth_rows():
+    """(TrackerConfig, chunks of rows) for a tracker that outgrows K3's
+    shared-memory variant: 3 frames of about 40 drifting boxes (pad width
+    64; T doubles from 8), then 3 frames of 1,100 separated persistent boxes
+    (pad width 2048, past the variant's 1,024; T doubles from 64 to 2048)."""
+    from fdt_torch.config import TrackerConfig
+
+    small = track_stream(3, 3, walkers=40, clutter=2.0, extent=1500.0)
+    rng = np.random.RandomState(11)
+    gx, gy = np.meshgrid(np.arange(34) * 60.0, np.arange(33) * 60.0)
+    xy = np.stack([gx.ravel(), gy.ravel()], 1)[:1100]
+    big = []
+    for _ in range(3):
+        corner = xy + rng.rand(*xy.shape) * 4
+        big.append(np.column_stack([corner, corner + 40, np.full(len(xy), 0.9)])
+                   .astype(np.float32))
+    return TrackerConfig(t_min=1, sigma_h=0.3), [small, big]
+
+
+def check_k3_growth(device) -> dict:
+    """A DeviceIoUTracker on the card that grows by doubling from t_max 8
+    past K3's shared-memory variant, so that both variants run: the counts
+    are set to 0 before its chunks and read after.  Every association call
+    (the redone ones too) bit-equal to a CPU tracker's (the plain version)
+    in records and state, and the tracks equal to the host tracker's.
+    Returns the launches of each variant and the final T.  Raises
+    AssertionError."""
+    from fdt_torch.ops import track as track_op
+    from fdt_torch.track import DeviceIoUTracker, track_detections
+
+    cfg, chunks = k3_growth_rows()
+    logs = ([], [])
+    card, cpu = (DeviceIoUTracker(cfg, t_max=8, device=where) for where in (device, "cpu"))
+    for tracker, log in zip((card, cpu), logs):
+        def recorded(*args, inner=tracker._associate, log=log):
+            out = inner(*args)
+            log.append([x.cpu() for x in (*vars(out[0]).values(), *out[1:])])
+            return out
+
+        tracker._associate = recorded
+    track_op.launches.reset()
+    track_op.global_launches.reset()
+    for rows in chunks:
+        card.step_chunk(rows)
+    launches = {"smem": track_op.launches.count, "global": track_op.global_launches.count}
+    for rows in chunks:
+        cpu.step_chunk(rows)
+    got, want = logs
+    if len(got) != len(want) or not all(torch.equal(g, w) for a, b in zip(got, want)
+                                        for g, w in zip(a, b)):
+        raise AssertionError("K3 on a growing tracker != the plain version")
+    tracks = card.flush()
+    if tracks != cpu.flush() or tracks != track_detections(
+            [r for c in chunks for r in c], cfg):
+        raise AssertionError("a growing tracker's tracks on the card != host")
+    if not launches["smem"] or not launches["global"]:
+        raise AssertionError(f"a growing tracker launched K3's variants {launches} times")
+    return {**launches, "calls": len(got), "t_max": card.t_max, "pad_n": card.pad_n,
+            "tracks": len(tracks)}
 
 
 def track_detector(setting: str, device):
@@ -1776,7 +1940,9 @@ def phase_tracking(device):
     path's (also through the grow-and-redo path) at TRACKER and at
     TRACK_CHECK, K1 on the path's own boxes against its plain version, and a
     torch.profiler split of one fused chunk.  Returns (K1 launches, K1's
-    largest mask difference, K3 launches, K3's fields for the JSON line)."""
+    largest mask difference, and the JSON line's fields of K3's two
+    variants: the shared-memory one's launches from the main path, the
+    device-memory one's from a tracker that outgrows the other)."""
     from fdt_torch.config import TRACKER, TrackerConfig
     from fdt_torch.ops import nms as nms_op
     from fdt_torch.ops import track as track_op
@@ -1785,7 +1951,14 @@ def phase_tracking(device):
     t0 = time.perf_counter()
     checked = 0
     for name in TRACK_EDGES:
-        checked += check_k3_chunks(*track_edge_case(name), device)
+        cfg, t_max, chunks = track_edge_case(name)
+        before = track_op.global_launches.count
+        checked += check_k3_chunks(cfg, t_max, chunks, device)
+        if name == "t-over-smem" and track_op.global_launches.count == before:
+            raise AssertionError("t-over-smem did not take K3's device-memory variant")
+        if name == "tile-rows" and not (0 < k3_rows(t_max, chunks[0][2].shape[1])
+                                        < k3_work(cfg, t_max, chunks)["most_live"]):
+            raise AssertionError("tile-rows fits one tile of K3's affinities")
     for seed in (0, 7, 11, 13):
         for use_iou in (True, False):
             stream = track_stream(seed)
@@ -1801,17 +1974,21 @@ def phase_tracking(device):
         raise AssertionError(f"DeviceIoUTracker on the card (grown to {grown.t_max}) != host")
     _phase("tracking_k3", t0, edges=len(TRACK_EDGES), chunks_checked=checked,
            grown_t_max=grown.t_max)
+    # the path of K3's device-memory variant: a tracker that outgrows the
+    # shared-memory one (counts set to 0 before, read after)
+    t0 = time.perf_counter()
+    growth = check_k3_growth(device)
+    _phase("tracking_k3_growth", t0, smem_launches=growth["smem"],
+           global_launches=growth["global"], calls=growth["calls"], t_max=growth["t_max"],
+           pad_n=growth["pad_n"], tracks=growth["tracks"])
 
     t0 = time.perf_counter()
-    k3 = k3_timings(device)
-    print(f"[k3] bench-16x32-t256 ms={k3['ms']:.4f} device_ms="
-          + ("not_measured" if k3["device_ms"] is None else f"{k3['device_ms']:.4f}")
-          + f" host_ms={k3['host_ms']:.4f} plain_ms={k3['plain_ms']:.4f}"
-          f" bound_ms={k3['bound_ms']:.7f} bound_by={k3['bound_by']}"
-          f" steps_per_chunk={k3['steps_per_chunk']:.2f}"
-          f" affinities_per_chunk={k3['affinities_per_chunk']:.1f}"
-          f" bytes_per_chunk={k3['bytes_per_chunk']:.0f}", flush=True)
-    _phase("tracking_k3_timed", t0, k3_ms=f"{k3['ms']:.4f}", plain_ms=f"{k3['plain_ms']:.4f}")
+    k3 = k3_timings(device, *k3_timed_case("bench-16x32-t256"))
+    _k3_line("bench-16x32-t256", k3)
+    k3_global = k3_timings(device, *track_edge_case("t-over-smem"))
+    _k3_line("t-over-smem-t6144x32", k3_global)
+    _phase("tracking_k3_timed", t0, k3_ms=f"{k3['ms']:.4f}", plain_ms=f"{k3['plain_ms']:.4f}",
+           k3_global_ms=f"{k3_global['ms']:.4f}")
 
     seq = pan_frames(bench_frame(TRACK_H, TRACK_W), TRACK_FRAMES)
     chunks = [torch.from_numpy(seq[c:c + TRACK_BATCH]).to(device)
@@ -1827,9 +2004,11 @@ def phase_tracking(device):
         nms_op.launches.reset()
         nms_op.greedy_launches.reset()
         track_op.launches.reset()
+        track_op.global_launches.reset()
         _fused_pass(tracker, chunks)           # the main path
         k1, k3_n = nms_op.launches.count, track_op.launches.count
-        if k1 != len(chunks) or k3_n != len(chunks) or nms_op.greedy_launches.count:
+        if (k1 != len(chunks) or k3_n != len(chunks) or nms_op.greedy_launches.count
+                or track_op.global_launches.count):
             raise AssertionError(f"tracking {setting}: {k1} K1 calls and {k3_n} K3 launches "
                                  f"for {len(chunks)} chunks (want 1 and 1 a chunk)")
         k1_launches += k1
@@ -1893,7 +2072,8 @@ def phase_tracking(device):
                   split["parts"].items(), key=lambda kv: -kv[1])), flush=True)
         for name, ms in split["top"]:
             print(f"[tracking]   {setting} {ms:8.3f} ms {name[:110]}", flush=True)
-    return k1_launches, k1_err, k3_launches, k3
+    k3["launches"], k3_global["launches"] = k3_launches, growth["global"]
+    return k1_launches, k1_err, k3, k3_global
 
 
 def _rows_agree(got: np.ndarray, want: np.ndarray, threshold: float,
@@ -2047,7 +2227,7 @@ def main() -> int:
     facebox_det, k2_launches = phase_facebox(device)
     phase_variants(device)
     mtcnn_launches, mtcnn_err = phase_mtcnn(device)
-    track_k1_launches, track_k1_err, k3_launches, k3 = phase_tracking(device)
+    track_k1_launches, track_k1_err, k3, k3_global = phase_tracking(device)
     phase_serving(det32, facebox_det)
 
     # PyTorch has no NMS call (and torchvision is not installed) and no
@@ -2068,13 +2248,21 @@ def main() -> int:
         "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"], "library_ms": None,
         "device_ms": k2["device_ms"], "host_ms": k2["host_ms"]}, {
-        "name": "track_assoc (K3)", "route": "cuda",
+        "name": "track_assoc_smem (K3, shared memory)", "route": "cuda",
         "source": "fdt_torch/csrc/track_assoc.cu",
         "replaces": "fdt/track/device_tracker.py:93",
-        "launches": k3_launches, "max_abs_err": 0.0,  # bit-equal, or the phase raised
+        "launches": k3["launches"], "max_abs_err": 0.0,  # bit-equal, or the phase raised
         "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"], "library_ms": None,
-        "device_ms": k3["device_ms"], "host_ms": k3["host_ms"]}]}))
+        "device_ms": k3["device_ms"], "host_ms": k3["host_ms"]}, {
+        "name": "track_assoc_global (K3, device memory)", "route": "cuda",
+        "source": "fdt_torch/csrc/track_assoc.cu",
+        "replaces": "fdt/track/device_tracker.py:93",
+        "launches": k3_global["launches"], "max_abs_err": 0.0,
+        "ms": k3_global["ms"], "plain_ms": k3_global["plain_ms"],
+        "bound_ms": k3_global["bound_ms"], "bound_by": k3_global["bound_by"],
+        "library_ms": None, "device_ms": k3_global["device_ms"],
+        "host_ms": k3_global["host_ms"]}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -47,8 +47,16 @@ SIGNATURES = {
     # slot state in (last_box, max_score, length, order, alive, next_key),
     # boxes, scores, valid, slot state out (the same six), assign, finish,
     # spawn, overflow, scratch; t, f, n, sigma_iou, sigma_dis, sigma_h,
-    # t_min, use_iou, stream
-    "fdt_track_associate": [_P] * 20 + [_I, _I, _I, _F, _F, _F, _I, _I, _P],
+    # t_min, use_iou, stream, int* rows a tile it took (0: device-memory variant)
+    "fdt_track_associate": [_P] * 20 + [_I, _I, _I, _F, _F, _F, _I, _I, _P, _P],
+    # t, n → rows a tile fdt_track_associate takes (0: the device-memory
+    # variant; < 0: CUDA error)
+    "fdt_track_rows": [_I, _I],
+}
+# C functions that return another type than int
+RESTYPES = {
+    # t, n, rows → bytes of shared memory fdt_track_associate takes
+    "fdt_track_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
 }
 
 _lock = threading.Lock()
@@ -136,5 +144,9 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            for name, (argtypes, restype) in RESTYPES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
             _lib = lib
         return _lib

@@ -4,11 +4,17 @@ K3, associate_chunk (fdt_torch/csrc/track_assoc.cu), replaces fdt's
 _associate_chunk (fdt/track/device_tracker.py:93-194), a `lax.scan` over the
 frames of a chunk with a `fori_loop` over the live slots that XLA compiles;
 it is not a Pallas kernel.  One launch runs a whole chunk with no host read.
-For CPU tensors the wrapper computes the plain version,
+The kernel has two variants, which its C entry picks by size and reports:
+the shared-memory one (`launches`) holds the slot state, a frame's
+affinities and its detections in shared memory, for N <= 1024 and a state
+that fits; the device-memory one (`global_launches`) takes every other
+shape.  For CPU tensors the wrapper computes the plain version,
 fdt_torch.geometry.track.associate_chunk_plain; for CUDA tensors it
-launches the kernel or raises.
+launches one of the variants or raises.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -16,7 +22,8 @@ from fdt_torch.config import TrackerConfig
 from fdt_torch.ops.nms import _Launches
 from fdt_torch.geometry.track import _Slots, associate_chunk_plain
 
-launches = _Launches()  # K3
+launches = _Launches()         # K3, the shared-memory variant
+global_launches = _Launches()  # K3, the device-memory variant
 
 _INT_MAX = 2**31 - 1
 
@@ -88,17 +95,19 @@ def associate_chunk(slots: _Slots, boxes: torch.Tensor, scores: torch.Tensor,
     finish = torch.empty((f, t), dtype=torch.bool, device=dev)
     spawn = torch.empty((f, n), dtype=torch.int32, device=dev)
     overflow = torch.empty((f,), dtype=torch.int32, device=dev)
+    # the device-memory variant's live, keys, visit and consumed lists
     scratch = torch.empty((3 * t + n,), dtype=torch.int32, device=dev)
     ptrs = [x.data_ptr() for x in (
         slots.last_box, slots.max_score, slots.length, slots.order, slots.alive,
         slots.next_key, boxes, scores, valid, new.last_box, new.max_score, new.length,
         new.order, new.alive, new.next_key, assign, finish, spawn, overflow, scratch)]
+    rows = ctypes.c_int(0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = library().fdt_track_associate(
-            *ptrs, t, f, n, float(cfg.sigma_iou), float(cfg.sigma_dis),
-            float(cfg.sigma_h), int(cfg.t_min), int(bool(cfg.use_iou)), stream)
+            *ptrs, t, f, n, float(cfg.sigma_iou), float(cfg.sigma_dis), float(cfg.sigma_h),
+            int(cfg.t_min), int(bool(cfg.use_iou)), stream, ctypes.byref(rows))
     if err != 0:
         raise RuntimeError(f"fdt_track_associate launch failed: CUDA error {err}")
-    launches.count += 1
+    (launches if rows.value else global_launches).count += 1
     return new, assign, finish, spawn, overflow

@@ -255,10 +255,39 @@ def test_track_kernel_bit_equal_to_plain_at_its_edges(card, name):
     """K3 on chip_smoke.TRACK_EDGES: frames with no rows and with only the
     sentinel row, the NaN of a sentinel-born track meeting a zero-area row,
     ties in IoU and distance, both modes, pad widths 1, 32, 33, 64 and 750,
-    a chunk that overflows t_max = 8, more than 64 live tracks.  Every
-    record and the state after each chunk bit-equal, one launch a chunk."""
+    a chunk that overflows t_max = 8, more than 64 live tracks, -0.0 tied
+    with +0.0, infinite boxes, a T past shared memory (the device-memory
+    variant), more live slots than a tile of affinities.  Every record and
+    the state after each chunk bit-equal, one launch a chunk."""
+    from fdt_torch.ops import track as track_op
+
     cfg, t_max, chunks = chip_smoke.track_edge_case(name)
+    before = track_op.global_launches.count
     assert chip_smoke.check_k3_chunks(cfg, t_max, chunks, card) == len(chunks)
+    variant = chip_smoke.k3_rows(t_max, chunks[0][2].shape[1])
+    assert (track_op.global_launches.count - before == 0) == (variant > 0)
+
+
+def test_track_kernel_variants_on_a_tracker_growing_past_shared_memory(card):
+    """A DeviceIoUTracker growing from t_max 8 and pad width 64 to 2048 ×
+    2048 (chip_smoke.check_k3_growth): both variants launch, every call
+    bit-equal to the plain version, tracks equal to the host tracker's."""
+    got = chip_smoke.check_k3_growth(card)
+    assert got["smem"] > 0 and got["global"] > 0 and got["t_max"] >= 2048
+
+
+def test_track_size_cases_reach_both_variants_and_several_tiles(card):
+    """By the kernel's own plan on this card: t-over-smem is past the
+    shared-memory variant (the device-memory one runs); tile-rows walks
+    more live slots than one tile of affinities holds; bench.py's density
+    fits one tile."""
+    _, t_max, chunks = chip_smoke.track_edge_case("t-over-smem")
+    assert chip_smoke.k3_rows(t_max, chunks[0][2].shape[1]) == 0
+    cfg, t_max, chunks = chip_smoke.track_edge_case("tile-rows")
+    rows = chip_smoke.k3_rows(t_max, chunks[0][2].shape[1])
+    assert 0 < rows < chip_smoke.k3_work(cfg, t_max, chunks)["most_live"]
+    assert (chip_smoke.k3_rows(chip_smoke.TRACK_T_MAX, chip_smoke.TRACK_DET_CAP)
+            == chip_smoke.TRACK_T_MAX)
 
 
 def test_fused_tracker_on_card_equals_its_unfused_path(card):
