@@ -16,7 +16,13 @@ Layering mirrors fdt's, bottom → top:
                       and the MTCNN device cascade
   fdt_torch.track     IoU tracking: the host tracker, the device association
                       (kernel K3 on the card) and fused detect + associate
+  fdt_torch.data      image decoding (PNG by the port itself, other formats through
+                      Pillow), WIDER anno files and the eval collector
+  fdt_torch.eval      WIDER eval loops, the batched eval, PR/ROC accounting and
+                      curves
   fdt_torch.apps      micro-batching DetectionService (pyramidbox, facebox, mtcnn)
+                      and its HTTP front end
+  fdt_torch.cli       command-line entry points (python -m fdt_torch.cli.<name>)
 
 Entry points run on the CUDA card unless the caller passes device="cpu".
 """

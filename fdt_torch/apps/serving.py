@@ -12,11 +12,18 @@ the "pyramidbox", "facebox" and "mtcnn" families).
                      nothing per batch size, so fdt's power-of-two bucket
                      padding would only add work), and maps boxes back to
                      each request's pixels.
-
-The HTTP front end of fdt/apps/serving.py waits for a later slice.
+  make_http_server   stdlib ThreadingHTTPServer front end: POST /detect with
+                     encoded image bytes → JSON detection rows; GET /healthz
+                     with the service's and the batcher's stats.  Every
+                     handler thread funnels into the one MicroBatcher, so
+                     HTTP concurrency becomes device batch size.  Bodies are
+                     decoded by fdt_torch.data.image_io (PNG by the port
+                     itself, other formats through Pillow) in place of
+                     cv2.imdecode.
 """
 from __future__ import annotations
 
+import json
 import queue
 import threading
 import time
@@ -31,7 +38,13 @@ from fdt_torch.infer.pyramidbox import detections_to_rows
 
 FAMILIES = ("pyramidbox", "facebox", "mtcnn")
 _SENTINEL = object()
-CLOSE_TIMEOUT_S = 30.0
+
+
+class _Call:
+    """A queue item that runs a function on the worker instead of a request."""
+
+    def __init__(self, fn: Callable[[], object]):
+        self.fn = fn
 
 
 class MicroBatcher:
@@ -70,17 +83,30 @@ class MicroBatcher:
             self._q.put((fut, item))
         return fut
 
-    def close(self) -> None:
+    def call(self, fn: Callable[[], object]) -> Future:
+        """Run fn() on the worker thread, alone and between batches; returns
+        a Future of its result.  It counts as no request and no batch.  What
+        PyTorch keeps for each thread, such as the cuDNN plans it has built
+        for each convolution shape, is then the worker's own."""
+        fut: Future = Future()
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("MicroBatcher is closed")
+            self._q.put((fut, _Call(fn)))
+        return fut
+
+    def close(self, timeout: float = 30.0) -> None:
         """Stop accepting requests, drain in-flight ones, join the worker.
 
-        If the worker does not finish within CLOSE_TIMEOUT_S, still-queued
-        futures are failed instead of left pending forever."""
+        If the worker does not finish within `timeout` seconds (stuck in a
+        long batch), still-queued futures are failed instead of left pending
+        forever: a caller blocked in fut.result() gets an error, not a hang."""
         with self._lock:
             if self._closed:
                 return
             self._closed = True
         self._q.put(_SENTINEL)
-        self._worker.join(CLOSE_TIMEOUT_S)
+        self._worker.join(timeout)
         if self._worker.is_alive():
             while True:
                 try:
@@ -91,6 +117,10 @@ class MicroBatcher:
                     item[0].set_exception(
                         RuntimeError("MicroBatcher closed before this "
                                      "request was served"))
+            # the drain took the sentinel too: put it back, so that the
+            # worker still ends when its batch returns (fdt's close leaves
+            # that worker blocked on the empty queue)
+            self._q.put(_SENTINEL)
 
     def __enter__(self):
         return self
@@ -109,7 +139,10 @@ class MicroBatcher:
             first = self._q.get()
             if first is _SENTINEL:
                 return
-            batch = [first]
+            if isinstance(first[1], _Call):
+                self._call(*first)
+                continue
+            batch, call = [first], None
             stop = False
             deadline = time.monotonic() + self.max_wait_s
             while len(batch) < self.max_batch:
@@ -122,6 +155,9 @@ class MicroBatcher:
                     break
                 if item is _SENTINEL:
                     stop = True
+                    break
+                if isinstance(item[1], _Call):  # it runs after this batch
+                    call = item
                     break
                 batch.append(item)
             # claim every future first: a client-cancelled future then cannot
@@ -145,8 +181,19 @@ class MicroBatcher:
             self.batches += 1
             self._size_sum += len(futures)
             self._size_max = max(self._size_max, len(futures))
+            if call is not None:
+                self._call(*call)
             if stop:
                 return
+
+    @staticmethod
+    def _call(fut: Future, call: _Call) -> None:
+        if not fut.set_running_or_notify_cancel():
+            return
+        try:
+            fut.set_result(call.fn())
+        except Exception as e:  # noqa: BLE001 — relay to the caller
+            fut.set_exception(e)
 
 
 def resize_bilinear(image: np.ndarray, width: int, height: int) -> np.ndarray:
@@ -187,6 +234,10 @@ class DetectionService:
         self.frame_w, self.frame_h = frame_size
         self.threshold = threshold
         self.nms_thresh = nms_thresh
+        # serialises _run_batch between the batcher's worker and any other
+        # caller: the detectors' per-shape LRUs are not safe under concurrent
+        # mutation (warmup() runs on the worker itself)
+        self._infer_lock = threading.Lock()
         self.batcher = MicroBatcher(self._run_batch, max_batch=max_batch,
                                     max_wait_ms=max_wait_ms)
 
@@ -198,6 +249,21 @@ class DetectionService:
     def detect(self, image_bgr: np.ndarray) -> np.ndarray:
         """Blocking single-request detect (rides a shared batch)."""
         return self.submit(image_bgr).result()
+
+    def warmup(self) -> None:
+        """Cut the first requests' latency: build and load the kernel library
+        on the card, then run frames of the service's size at every batch
+        size from 1 to max_batch, on the batcher's worker thread.  The port
+        pads no batch to a bucket, so the batcher may form any of them; the
+        first call of each pays cuDNN's set-up for its shapes, and PyTorch
+        keeps what that set-up builds for each thread apart, so a warmup on
+        the caller's thread would leave the worker cold."""
+        if self.detector.device.type == "cuda":
+            from fdt_torch.ops import _build
+            _build.library()
+        frame = np.zeros((self.frame_h, self.frame_w, 3), np.uint8)
+        for n in range(1, self.batcher.max_batch + 1):
+            self.batcher.call(lambda n=n: self._run_batch([frame] * n)).result()
 
     def stats(self) -> dict:
         return {"family": self.family,
@@ -219,6 +285,10 @@ class DetectionService:
             [im if im.shape[:2] == (self.frame_h, self.frame_w)
              else resize_bilinear(im, self.frame_w, self.frame_h)
              for im in images])
+        with self._infer_lock:
+            return self._detect_rows(frames, sizes)
+
+    def _detect_rows(self, frames: np.ndarray, sizes: list) -> list[np.ndarray]:
         if self.family == "facebox":
             return [self._facebox_rows(b, s, *size) for (b, s), size
                     in zip(self.detector.detect_batch(frames), sizes)]
@@ -256,3 +326,93 @@ class DetectionService:
         lm[:, 1::2] *= sy
         keep = b[:, 4] >= self.threshold
         return np.column_stack([b[keep], lm[keep]]).astype(np.float32).reshape(-1, 15)
+
+
+# -- HTTP front end -----------------------------------------------------------
+
+
+def make_http_server(service: DetectionService, host: str = "127.0.0.1",
+                     port: int = 0, max_body_bytes: int = 64 << 20):
+    """Build (do not start) a ThreadingHTTPServer around a DetectionService.
+
+    POST /detect    body = an encoded image (PNG, or what Pillow reads) →
+                    {"detections": [[x1, y1, x2, y2, score, ...], ...],
+                    "count": n}.  Optional ?threshold=T post-filters rows by
+                    score.  A body over `max_body_bytes` (64 MB by default)
+                    gets 413 before it is read; an undecodable one, or a
+                    Content-Length that is no count, 400; an exception 500.
+    GET  /healthz   → {"status": "ok", ...service stats}.
+    Any other path gets 404.
+
+    The caller owns the lifecycle: server.serve_forever() (usually on a
+    thread), then server.shutdown(), server.server_close(), service.close().
+    """
+    import urllib.parse
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    from fdt_torch.data.image_io import imdecode
+
+    class Handler(BaseHTTPRequestHandler):
+        def _reply(self, code: int, payload: dict):
+            body = json.dumps(payload).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):  # noqa: N802 — http.server API
+            if urllib.parse.urlparse(self.path).path == "/healthz":
+                self._reply(200, {"status": "ok", **service.stats()})
+            else:
+                self._reply(404, {"error": f"unknown path {self.path}"})
+
+        def do_POST(self):  # noqa: N802
+            url = urllib.parse.urlparse(self.path)
+            if url.path != "/detect":
+                self._reply(404, {"error": f"unknown path {url.path}"})
+                return
+            try:
+                try:
+                    length = int(self.headers.get("Content-Length", 0))
+                except ValueError:
+                    length = -1
+                if length < 0:  # rfile.read(-1) would wait for the client to close
+                    self._reply(400, {"error": "bad Content-Length"})
+                    return
+                if length > max_body_bytes:
+                    self._reply(413, {"error": f"body {length} bytes exceeds "
+                                               f"limit {max_body_bytes}"})
+                    return
+                img = imdecode(self.rfile.read(length))
+                if img is None:
+                    self._reply(400, {"error": "undecodable image payload"})
+                    return
+                rows = service.detect(img)
+                q = urllib.parse.parse_qs(url.query)
+                if "threshold" in q:
+                    rows = rows[rows[:, 4] >= float(q["threshold"][0])]
+                self._reply(200, {"detections": rows.tolist(),
+                                  "count": int(len(rows))})
+            except Exception as e:  # noqa: BLE001 — HTTP boundary
+                self._reply(500, {"error": f"{type(e).__name__}: {e}"})
+
+        def log_message(self, *args):  # quiet by default
+            pass
+
+    return ThreadingHTTPServer((host, port), Handler)
+
+
+def serve_http(service: DetectionService, host: str = "127.0.0.1",
+               port: int = 8000, max_body_bytes: int = 64 << 20) -> None:
+    """Serve `service` over HTTP until interrupted, then close both."""
+    server = make_http_server(service, host, port, max_body_bytes)
+    print(f"fdt_torch serving {service.family} on "
+          f"http://{host}:{server.server_address[1]} (frame {service.frame_w}x"
+          f"{service.frame_h}, max_batch {service.batcher.max_batch}, "
+          f"device {service.detector.device})", flush=True)
+    try:
+        server.serve_forever()
+    finally:
+        server.server_close()
+        service.close()

@@ -11,28 +11,32 @@ bench mode.  `precision` is fdt's: "highest" (the default) turns TF32 off for
 the forward, as fdt's precision="highest" keeps full float32; "default"
 allows it.  Priors are cached per (width, height), from the source shapes of the
 first forward at that size (exact for try4/try5 too, whose maps break the
-ceil-halving rule; fdt takes them from an abstract trace).
+ceil-halving rule; fdt takes them from an abstract trace), in an LRU of 64
+sizes as fdt bounds its per-shape executables: native-resolution eval sees
+hundreds of sizes.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+from collections import OrderedDict
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from fdt_torch.anchors import pyramid_face_priors
-from fdt_torch.config import PIXEL_MEAN_BGR, PYRAMID_CONFIGS, PyramidConfig
+from fdt_torch.config import DetectConfig, PIXEL_MEAN_BGR, PYRAMID_CONFIGS, PyramidConfig
 from fdt_torch.infer.detect import ssd_detect
 
 
-def detections_to_rows(det: np.ndarray, threshold: float, scale) -> np.ndarray:
+def detections_to_rows(det: np.ndarray, threshold: float, scale,
+                       shrink: float = 1.0) -> np.ndarray:
     """Walk a [C, top_k, 5] detection tensor like the reference's My_test.py.
 
     For every class (including background class 0, whose rows are zeros) take
-    the PREFIX of rows with score >= threshold, scale boxes to pixels, and
-    stack [x1, y1, x2, y2, score] rows.  Returns the
+    the PREFIX of rows with score >= threshold, scale boxes to pixels, divide
+    by `shrink`, and stack [x1, y1, x2, y2, score] rows.  Returns the
     [[0, 0, 0, 0, 0.4]] sentinel when nothing qualifies.
     """
     rows = []
@@ -41,7 +45,7 @@ def detections_to_rows(det: np.ndarray, threshold: float, scale) -> np.ndarray:
         s = det[cl, :, 0]
         take = int(np.cumprod(s >= threshold).sum())
         if take:
-            rows.append(np.column_stack([det[cl, :take, 1:5] * scale,
+            rows.append(np.column_stack([det[cl, :take, 1:5] * scale / shrink,
                                          s[:take]]))
     if not rows:
         return np.array([[0, 0, 0, 0, 0.4]], np.float32)
@@ -87,24 +91,31 @@ class PyramidBoxDetector:
     Args:
       model: the variant's model (fdt_torch.models.build_pyramidbox) with its
         weights loaded (moved to `device`).
-      cfg: a PyramidConfig or its name ("repo", "try1" … "try5"): the priors,
-        the default thresholds and the NMS budget (detect.nms_top_k).
+      cfg: a PyramidConfig or its name ("repo", "try1" … "try5"): the priors
+        and, unless `detect_cfg` is given, the detect head's settings.
+      detect_cfg: a DetectConfig for the detect head (top_k, default
+        thresholds, variance); defaults to cfg.detect.
+      budget: boxes of each class entering NMS (fdt's default, 5000).
       dtype: torch.float32, or torch.bfloat16 (computed channels_last).
       device: None → "cuda" (raises if absent); "cpu" for the CPU.
       precision: "highest" (TF32 off for the forward) or "default" (TF32
         allowed), as fdt's detector.
 
     `source_shapes[(width, height)]` holds the (f_width, f_height) of every
-    source map, recorded at the first forward at that size.
+    source map, recorded at the first forward at that size, for the sizes the
+    LRU of `_priors_max` sizes still holds.
     """
 
     def __init__(self, model, cfg: PyramidConfig | str = "repo",
+                 detect_cfg: DetectConfig | None = None, budget: int = 5000,
                  dtype: torch.dtype = torch.float32, device=None,
                  precision: str = "highest"):
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
         self.precision = _check_precision(precision)
         self.cfg = PYRAMID_CONFIGS[cfg] if isinstance(cfg, str) else cfg
+        self.detect_cfg = detect_cfg or self.cfg.detect
+        self.budget = budget
         self.dtype = dtype
         self.device = _resolve_device(device)
         self.memory_format = (torch.channels_last if dtype == torch.bfloat16
@@ -113,21 +124,30 @@ class PyramidBoxDetector:
                                      memory_format=self.memory_format)
         self._mean = torch.tensor(PIXEL_MEAN_BGR, dtype=torch.float32,
                                   device=self.device)
-        self._priors: dict[tuple[int, int], torch.Tensor] = {}
-        self.source_shapes: dict[tuple[int, int], tuple] = {}
+        # (width, height) → (source shapes, priors on the device), least
+        # recently used first
+        self._priors: OrderedDict = OrderedDict()
+        self._priors_max = 64
+
+    @property
+    def source_shapes(self) -> dict[tuple[int, int], tuple]:
+        return {size: shapes for size, (shapes, _) in self._priors.items()}
 
     def _priors_for(self, width: int, height: int, source_shapes) -> torch.Tensor:
-        priors = self._priors.get((width, height))
-        if priors is None:
+        key = (width, height)
+        entry = self._priors.get(key)
+        if entry is None:
             if len(source_shapes) != len(self.cfg.face_priors.strides):
                 raise ValueError(f"the model has {len(source_shapes)} source maps; "
                                  f"config {self.cfg.name!r} has priors for "
                                  f"{len(self.cfg.face_priors.strides)}")
-            self.source_shapes[(width, height)] = tuple(source_shapes)
-            priors = self._priors[(width, height)] = torch.from_numpy(
-                pyramid_face_priors(self.cfg, source_shapes, width, height)
-            ).to(self.device)
-        return priors
+            entry = self._priors[key] = (tuple(source_shapes), torch.from_numpy(
+                pyramid_face_priors(self.cfg, source_shapes, width, height)).to(self.device))
+        else:
+            self._priors.move_to_end(key)
+        while len(self._priors) > self._priors_max:  # also after the bound is lowered
+            self._priors.popitem(last=False)
+        return entry[1]
 
     @torch.inference_mode()
     def detect_device(self, images_u8: torch.Tensor, conf_thresh: float | None = None,
@@ -139,9 +159,9 @@ class PyramidBoxDetector:
                              f"{tuple(images_u8.shape)}")
         b, h, w, _ = images_u8.shape
         dcfg = dataclasses.replace(
-            self.cfg.detect,
-            conf_thresh=self.cfg.detect.conf_thresh if conf_thresh is None else conf_thresh,
-            nms_thresh=self.cfg.detect.nms_thresh if nms_thresh is None else nms_thresh)
+            self.detect_cfg,
+            conf_thresh=self.detect_cfg.conf_thresh if conf_thresh is None else conf_thresh,
+            nms_thresh=self.detect_cfg.nms_thresh if nms_thresh is None else nms_thresh)
         x = images_u8.to(self.device, non_blocking=True).float() - self._mean
         x = x.permute(0, 3, 1, 2).to(self.dtype).contiguous(
             memory_format=self.memory_format)
@@ -149,7 +169,7 @@ class PyramidBoxDetector:
             out = self.model(x)
         priors = self._priors_for(w, h, out["source_shapes"])
         conf = F.softmax(out["face_conf"], dim=-1)
-        return ssd_detect(out["face_loc"], conf, priors, dcfg)
+        return ssd_detect(out["face_loc"], conf, priors, dcfg, budget=self.budget)
 
     def detect_tensor(self, images_u8, conf_thresh: float | None = None,
                       nms_thresh: float | None = None) -> np.ndarray:
@@ -157,3 +177,30 @@ class PyramidBoxDetector:
         if not torch.is_tensor(images_u8):
             images_u8 = torch.from_numpy(np.ascontiguousarray(images_u8))
         return self.detect_device(images_u8, conf_thresh, nms_thresh).cpu().numpy()
+
+    def detect_face(self, image_bgr: np.ndarray, threshold: float,
+                    shrink: float = 1.0, nms_thresh: float = 0.35) -> np.ndarray:
+        """Single-image eval-protocol detection (My_test.py's detect_face).
+
+        With shrink != 1 the image is first resized as cv2.resize(fx=shrink,
+        fy=shrink) resizes it (`shrink_image`).  Returns [N, 5] rows
+        [x1, y1, x2, y2, score] in the pixels of the image before the shrink.
+        """
+        if shrink != 1.0:
+            image_bgr = shrink_image(image_bgr, shrink)
+        h, w, _ = image_bgr.shape
+        det = self.detect_tensor(image_bgr[None], conf_thresh=threshold,
+                                 nms_thresh=nms_thresh)[0]
+        return detections_to_rows(det, threshold, [w, h, w, h], shrink)
+
+
+def shrink_image(image_bgr: np.ndarray, fx: float) -> np.ndarray:
+    """cv2.resize(image, None, fx=fx, fy=fx, interpolation=INTER_LINEAR) of an
+    [H, W, 3] uint8 image, within 1 LSB: the destination is rint(H·fx) ×
+    rint(W·fx), and a destination pixel u samples source (u + 0.5)/fx − 0.5,
+    cv2's mapping by the factor and not by the ratio of the sizes."""
+    from fdt_torch.infer.mtcnn_device import _resize_level
+    h, w = image_bgr.shape[:2]
+    x = torch.from_numpy(np.ascontiguousarray(image_bgr)).permute(2, 0, 1)[None].float()
+    y = _resize_level(x, int(np.rint(h * fx)), int(np.rint(w * fx)), fx)
+    return y[0].permute(1, 2, 0).clamp(0, 255).to(torch.uint8).numpy()

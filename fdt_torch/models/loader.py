@@ -109,7 +109,8 @@ def load_pyramidbox(path: str, variant: str = "repo") -> nn.Module:
 
 def load_pyramidbox_detector(variant: str, weights: str | None, **kw):
     """A PyramidBoxDetector for any variant; torch's default initialisation
-    when `weights` is None (fdt's is flax's).  **kw go to the detector."""
+    when `weights` is None (fdt's is flax's).  **kw go to the detector
+    (detect_cfg=, budget=, dtype=, device=, precision=)."""
     from fdt_torch.infer.pyramidbox import PyramidBoxDetector
     model = (load_pyramidbox(weights, variant) if weights
              else build_pyramidbox(variant).eval())

@@ -17,7 +17,7 @@ ported yet.
 """
 from __future__ import annotations
 
-from collections import deque
+from collections import OrderedDict, deque
 from typing import List
 
 import numpy as np
@@ -53,14 +53,14 @@ class FusedVideoTracker(DeviceIoUTracker):
                  nms_thresh: float | None = None, t_max: int = 256,
                  lookahead: int = 1):
         self.detector = detector
-        top_k = detector.cfg.detect.top_k
+        top_k = detector.detect_cfg.top_k
         self.det_cap = top_k if det_cap is None else int(det_cap)
         if not 0 < self.det_cap <= top_k:
             raise ValueError(f"det_cap must be in (0, {top_k}] (detector top_k); "
                              f"got {det_cap}")
-        self.conf_thresh = (detector.cfg.detect.conf_thresh
+        self.conf_thresh = (detector.detect_cfg.conf_thresh
                             if threshold is None else threshold)
-        self.nms_thresh = (detector.cfg.detect.nms_thresh
+        self.nms_thresh = (detector.detect_cfg.nms_thresh
                            if nms_thresh is None else nms_thresh)
         if cfg.score_floor <= 0:
             # detections_to_rows walks the all-zero class-0 rows when the
@@ -70,9 +70,11 @@ class FusedVideoTracker(DeviceIoUTracker):
         self.lookahead = int(lookahead)
         # (packed host tensor, its copy's event or None, f, cap, t, pre-chunk slots)
         self._pending: deque = deque()
-        # [w, h, w, h] on the device by frame size: a tensor made a chunk would
-        # copy from pageable memory, which waits for the stream to drain
-        self._scales: dict[tuple[int, int], torch.Tensor] = {}
+        # [w, h, w, h] on the device by frame size, an LRU of 16 sizes as fdt
+        # bounds its per-shape cache: a tensor made a chunk would copy from
+        # pageable memory, which waits for the stream to drain
+        self._scales: OrderedDict = OrderedDict()
+        self._scales_max = 16
 
     def _post(self, det: torch.Tensor, slots, width: int, height: int):
         """[F, 2, top_k, 5] detections and the slot state → (new slots, the
@@ -81,6 +83,10 @@ class FusedVideoTracker(DeviceIoUTracker):
         if scale is None:
             scale = self._scales[(width, height)] = torch.tensor(
                 [width, height, width, height], dtype=torch.float32, device=self.device)
+        else:
+            self._scales.move_to_end((width, height))
+        while len(self._scales) > self._scales_max:
+            self._scales.popitem(last=False)
         cap, floor = self.det_cap, self.cfg.score_floor
         f = det.shape[0]
         cls1 = det[:, 1, :cap, :]

@@ -331,3 +331,69 @@ def test_track_wrapper_rejects_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError, match="contiguous"):
         track_op.associate_chunk(slots, boxes.transpose(0, 1).contiguous().transpose(0, 1),
                                  scores, valid, TRACKER)
+
+
+@pytest.fixture
+def try3_on_card(card):
+    """The trained try3 detector (net_weight/try3_mini.npz), float32, on the card."""
+    from fdt_torch.infer import PyramidBoxDetector
+    from fdt_torch.models import load_pyramidbox
+
+    return PyramidBoxDetector(load_pyramidbox(str(REPO / chip_smoke.VARIANT_WEIGHTS["try3"]),
+                                              "try3"), "try3", device=card)
+
+
+def test_http_server_on_card_answers_as_direct_calls(try3_on_card):
+    """PNG bodies POSTed from 4 threads to make_http_server around a card
+    service: each answer against a direct detect_tensor call on its frame
+    (float32, another batch size: 1e-4 in scores, 0.05 px), K1 once a batch."""
+    import threading
+
+    from fdt_torch.apps.serving import DetectionService, make_http_server
+    from fdt_torch.infer import detections_to_rows
+
+    det, h, w, threshold = try3_on_card, 128, 160, 0.05
+    rng = np.random.RandomState(12)
+    frames = [rng.randint(0, 256, (h, w, 3), dtype=np.uint8) for _ in range(8)]
+    want = []
+    for f in frames:
+        r = detections_to_rows(det.detect_tensor(f[None], threshold, 0.35)[0], threshold,
+                               [w, h, w, h])
+        want.append(r if r[:, :4].any() else np.empty((0, 5), np.float32))
+    assert sum(map(len, want)) > 0
+    svc = DetectionService("pyramidbox", det, frame_size=(w, h), threshold=threshold,
+                           max_batch=4, max_wait_ms=20)
+    server = make_http_server(svc, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        nms_op.launches.reset()
+        got, _, _ = chip_smoke._http_burst(
+            f"http://127.0.0.1:{server.server_address[1]}/detect",
+            [chip_smoke.encode_png(f) for f in frames])
+        assert nms_op.launches.count == svc.stats()["batches"] > 0
+    finally:
+        server.shutdown()
+        server.server_close()
+        svc.close()
+    for i in range(len(frames)):
+        assert chip_smoke._rows_agree(got[i], want[i], threshold, 1e-4, 0.05)
+
+
+def test_eval_pyramidbox_on_card_equals_direct_detect_face(try3_on_card, tmp_path):
+    """eval_pyramidbox on PNG files of three sizes: the dump bit-equal to one
+    built from direct detect_face calls, one K1 launch an image."""
+    from fdt_torch.eval.runner import eval_pyramidbox
+
+    det = try3_on_card
+    images = chip_smoke.eval_images(seed=1, n=6, sizes=((128, 160), (96, 128), (200, 150)))
+    want = [det.detect_face(im, 0.0) for im in images]
+    rng = np.random.RandomState(0)
+    anno = chip_smoke.write_eval_set(
+        tmp_path, images, [chip_smoke.gt_boxes(r, *im.shape[:2], rng)
+                           for r, im in zip(want, images)])
+    nms_op.launches.reset()
+    dump = eval_pyramidbox(det, anno, 0.0, progress=False)
+    assert nms_op.launches.count == len(images)
+    np.testing.assert_array_equal(dump, chip_smoke.reference_dump(want, anno))
+    assert dump[0, :-1].sum() > 0

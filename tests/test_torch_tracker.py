@@ -313,6 +313,7 @@ class _Detector:
     def __init__(self):
         from fdt_torch.config import PYRAMID_CONFIGS
         self.cfg = PYRAMID_CONFIGS["try3"]
+        self.detect_cfg = self.cfg.detect
         self.device = torch.device("cpu")
 
 
