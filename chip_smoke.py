@@ -83,6 +83,23 @@ Phases, each printing one line with its seconds:
                (one K1 launch a chunk; images at their bucket size against
                the native rows); eval_facebox and eval_mtcnn(bucketed=True)
                bit-equal to direct calls; images/s of each.
+ 12. mtcnn_host — MTCNN's host cascade (nets on the card, crops and NMS on
+               the host) on the "host" nets and the sparse golden's two
+               480×640 frames: against fdt's host cascade (the golden
+               mtcnn_host_sparse.npz) and the port's device cascade within
+               fdt's own host-to-device bound; images/s of both cascades and
+               each stage's wall ms split into kernel time and host time.
+ 13. video   — VIDEO_FRAMES frames of the tracking pan written as PNGs and
+               read back through read_frames; track_video (host and device
+               trackers) and track_video_fused at batch 8 and 16 on the
+               trained flagship in the tracker configuration: tracks equal to
+               the unfused path's, K1 and K3 counted on each leg, K1 on one
+               batch's boxes against its plain version, frames/s.
+ 14. video_render — render_tracks of those tracks into PNGs: frames/s, and
+               boxes read back in their track's colour.
+ 15. video_demo — run_video with each family (flagship, FaceBoxes, MTCNN's
+               host and device cascades) over DEMO_FRAMES frames: answers
+               equal to direct calls, the average fps, K1 launches.
 Then a JSON line of the kernels and, last, {"ok": true, "device": {...}}.
 Any failure exits non-zero; a hang exits non-zero with a traceback.
 """
@@ -157,7 +174,24 @@ MTCNN_H, MTCNN_W, MTCNN_BATCH = 480, 640, 32
 MTCNN_WEIGHTS_SEED = 1
 MTCNN_SHIFTS = {"saturated": {},
                 "sparse": {"pnet": ("conv4_1", 0.6), "rnet": ("conv5_1", 1.6)}}
+# The host cascade (the reference's, fdt/infer/mtcnn.py) crops each squared
+# candidate into an array of its own size, so an empty or inverted square
+# raises (ValueError, or an empty resize).  The seeded nets regress offsets
+# of order 1, which invert about one PNet candidate in ten: the host cascade
+# cannot run on them at all.  Setting "host" is the sparse one with the
+# regression layers that place the next stage's crops (PNet's conv4_2,
+# RNet's conv5_2) scaled by MTCNN_HOST_REG_SCALE, so that offsets stay in the
+# range a trained MTCNN regresses.
+MTCNN_HOST_REG = {"pnet": "conv4_2", "rnet": "conv5_2"}
+MTCNN_HOST_REG_SCALE = 0.1
 MTCNN_GOLDEN = GOLDEN_DIR / "mtcnn_sparse.npz"
+# fdt's host cascade on the "host" nets and the sparse golden's frames, and
+# the bound between a cascade that resizes as cv2 does and one that does not:
+# fdt's own between its host and device cascades (tests/test_mtcnn_device.py:
+# 89-93), with one detection more or less, the difference of fdt's own pair
+# on the first frame (19 against 18 on the CPU)
+MTCNN_HOST_GOLDEN = GOLDEN_DIR / "mtcnn_host_sparse.npz"
+MTCNN_HOST_SCORE_TOL, MTCNN_HOST_PX_TOL, MTCNN_HOST_COUNT_DIFF = 2e-2, 2.0, 1
 MTCNN_FRAME_SEEDS = (0, 1)  # the sparse golden's batch
 MTCNN_PX_TOL = 1e-2  # golden boxes and landmarks, pixels
 
@@ -182,6 +216,11 @@ TRACK_WEIGHTS_SEED = 0
 # about 8 rows a frame, where rows do extend tracks.
 TRACK_CHECK = {"sigma_h": 0.0, "t_min": 1}
 TRACK_CHECK_ROWS = 8
+
+# The video paths: frames of the tracking phase's pan written as PNGs and
+# read back through fdt_torch.data.read_frames, tracked at fdt's batch of 8
+# and at 16; the demos run the first DEMO_FRAMES of them
+VIDEO_FRAMES, VIDEO_BATCHES, VIDEO_PASSES, DEMO_FRAMES = 32, (8, 16), 2, 16
 
 
 def bench_frame(h: int, w: int) -> np.ndarray:
@@ -367,16 +406,22 @@ def track_edge_case(name: str):
 
 def mtcnn_variables(setting: str) -> tuple:
     """flax-layout variables of (PNet, RNet, ONet) for a setting of
-    MTCNN_SHIFTS: seeded_variables with the setting's bias shifts."""
+    MTCNN_SHIFTS: seeded_variables with the setting's bias shifts; "host" is
+    "sparse" with MTCNN_HOST_REG's layers scaled by MTCNN_HOST_REG_SCALE."""
     from fdt_torch.models import ONet, PNet, RNet
 
+    shifts = MTCNN_SHIFTS["sparse" if setting == "host" else setting]
     out = []
     for name, model in (("pnet", PNet()), ("rnet", RNet()), ("onet", ONet())):
         variables = seeded_variables(model, MTCNN_WEIGHTS_SEED)
-        if name in MTCNN_SHIFTS[setting]:
-            layer, shift = MTCNN_SHIFTS[setting][name]
+        if name in shifts:
+            layer, shift = shifts[name]
             params = variables["params"][layer]
             params["bias"] = params["bias"] - np.float32(shift)
+        if setting == "host" and name in MTCNN_HOST_REG:
+            params = variables["params"][MTCNN_HOST_REG[name]]
+            for key in ("kernel", "bias"):
+                params[key] = params[key] * np.float32(MTCNN_HOST_REG_SCALE)
         out.append(variables)
     return tuple(out)
 
@@ -480,6 +525,36 @@ def match_detections(got_boxes, got_lm, want_boxes, want_lm, score_tol: float, p
     return score_err, px_err
 
 
+def match_unordered(got_boxes, got_lm, want_boxes, want_lm, score_tol: float,
+                    px_tol: float, unmatched: int = 0) -> tuple[float, float, int]:
+    """Match two MTCNN detection lists of one image row to row, in any order:
+    each row of `got` takes the first row of `want` not yet taken whose score
+    is within score_tol and whose box and landmarks are within px_tol.
+    Return (largest score difference, largest pixel difference of the
+    matched rows, rows of either list left unmatched); raise AssertionError
+    when more than `unmatched` rows are left."""
+    got = np.column_stack([np.asarray(got_boxes)[:, :4], got_lm]) if len(got_boxes) else \
+        np.empty((0, 14))
+    want = np.column_stack([np.asarray(want_boxes)[:, :4], want_lm]) if len(want_boxes) else \
+        np.empty((0, 14))
+    free = list(range(len(want)))
+    score_err = px_err = 0.0
+    for i in range(len(got)):
+        for j in free:
+            px = float(np.abs(got[i] - want[j]).max())
+            ds = abs(float(got_boxes[i][4]) - float(want_boxes[j][4]))
+            if px <= px_tol and ds <= score_tol:
+                free.remove(j)
+                score_err, px_err = max(score_err, ds), max(px_err, px)
+                break
+    left = len(free) + len(got) - (len(want) - len(free))
+    if left > unmatched:
+        raise AssertionError(f"{left} detections unmatched (at most {unmatched}) within "
+                             f"{score_tol} in score and {px_tol} px: {len(got)} against "
+                             f"{len(want)}")
+    return score_err, px_err, left
+
+
 def _phase(name: str, t0: float, **fields) -> None:
     extra = " ".join(f"{k}={v}" for k, v in fields.items())
     print(f"[phase] {name} {time.perf_counter() - t0:.3f}s {extra}".rstrip(),
@@ -529,6 +604,18 @@ def _warm(fn, seconds: float = WARMUP_S) -> None:
 def _rates(fn, batch: int) -> list[float]:
     """Images/s of three blocks of 5 calls of fn() on `batch` images."""
     return [batch / _cuda_ms(fn, 5) * 1e3 for _ in range(3)]
+
+
+def _frames_per_s(run, frames: int, passes: int) -> list[float]:
+    """frames / s of `passes` calls of run(), each ended by a synchronize."""
+    rates = []
+    for _ in range(passes):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        rates.append(frames / (time.perf_counter() - t))
+    return rates
 
 
 def _pallas_case(seed, n):
@@ -1827,12 +1914,14 @@ def track_detector(setting: str, device):
                               precision="default")
 
 
-def unfused_tracks(det, chunks, cfg, device_rows: bool = False):
+def unfused_tracks(det, chunks, cfg, device_rows: bool = False,
+                   cap: int | None = TRACK_DET_CAP):
     """The unfused tracking path at the fused tracker's chunk shapes:
     detect_tensor (a host read) and detections_to_rows at cfg.score_floor,
-    rows capped at 32, then the host IoUTracker (or, with device_rows,
-    DeviceIoUTracker on the card, bench.py's tracker_device leg).  Returns
-    (tracks, the [N, 5] rows of every frame, live tracks a frame)."""
+    rows capped at `cap` (None: uncapped), then the host IoUTracker (or, with
+    device_rows, DeviceIoUTracker on the card, bench.py's tracker_device
+    leg).  Returns (tracks, the [N, 5] rows of every frame, live tracks a
+    frame)."""
     from fdt_torch.infer import detections_to_rows
     from fdt_torch.track import DeviceIoUTracker, IoUTracker
 
@@ -1843,7 +1932,7 @@ def unfused_tracks(det, chunks, cfg, device_rows: bool = False):
     all_rows, live_n = [], []
     for chunk in chunks:
         out = det.detect_tensor(chunk, floor, TRACK_NMS)
-        rows = [detections_to_rows(o, floor, [w, h, w, h])[:TRACK_DET_CAP] for o in out]
+        rows = [detections_to_rows(o, floor, [w, h, w, h])[:cap] for o in out]
         all_rows += rows
         if device_rows:
             tracker.step_chunk(rows)
@@ -2036,14 +2125,7 @@ def phase_tracking(device):
                          ("device_rows", lambda: unfused_tracks(det, chunks, TRACKER,
                                                                 device_rows=True)),
                          ("host_rows", lambda: unfused_tracks(det, chunks, TRACKER))):
-            passes = []
-            for _ in range(TRACK_PASSES):
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                run()
-                torch.cuda.synchronize()
-                passes.append(TRACK_FRAMES / (time.perf_counter() - t))
-            rates[leg] = passes
+            rates[leg] = _frames_per_s(run, TRACK_FRAMES, TRACK_PASSES)
         # new fused trackers' tracks against the unfused path's (same_tracks),
         # at bench.py's TRACKER and at TRACK_CHECK, whose tracks are not empty
         main = check_fused(det, chunks, TRACKER)
@@ -2218,10 +2300,11 @@ EVAL_IMAGES, EVAL_THRESHOLD, EVAL_NMS, EVAL_BATCH = 24, 0.0, 0.35, 8
 EVAL_CACHE_BOUND = 4  # the detector's per-shape LRU, lowered for the eviction pass
 
 
-def encode_png(img: np.ndarray, row_filter=2) -> bytes:
+def encode_png(img: np.ndarray, row_filter=2, level: int = 6) -> bytes:
     """[H, W] gray, [H, W, 3] BGR or [H, W, 4] BGRA uint8 → PNG bytes, 8-bit,
     each row filtered with `row_filter` (0 None, 1 Sub, 2 Up, 3 Average,
-    4 Paeth), or with row_filter[y] for row y when it is a sequence."""
+    4 Paeth), or with row_filter[y] for row y when it is a sequence; zlib at
+    `level`."""
     import struct
     import zlib
 
@@ -2248,7 +2331,7 @@ def encode_png(img: np.ndarray, row_filter=2) -> bytes:
 
     header = struct.pack(">IIBBBBB", w, h, 8, {1: 0, 3: 2, 4: 6}[c], 0, 0, 0)
     return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
-            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), level)) + chunk(b"IEND", b""))
 
 
 def eval_images(seed: int = 3, n: int = EVAL_IMAGES, sizes=EVAL_SIZES) -> list:
@@ -2757,6 +2840,297 @@ def phase_eval(det32, facebox_det, device):
     return launches
 
 
+# --- this slice: MTCNN's host cascade and the video paths -----------------------------
+
+def host_cascade(device):
+    """The port's host MTCNNDetector on the "host" seeded nets."""
+    from fdt_torch.infer import MTCNNDetector
+    from fdt_torch.models import load_mtcnn_nets
+
+    return MTCNNDetector(*load_mtcnn_nets(*mtcnn_variables("host")), device=device)
+
+
+def mtcnn_host_frames() -> list:
+    """The host golden's frames, checked against its digest."""
+    g = np.load(MTCNN_HOST_GOLDEN)
+    h, w = int(g["height"]), int(g["width"])
+    images = [golden_frame(int(seed), h, w) for seed in g["frame_seeds"]]
+    if hashlib.sha256(np.stack(images).tobytes()).hexdigest() != str(g["frame_sha256"]):
+        raise AssertionError("the seeded frames differ from the MTCNN host golden's")
+    return images
+
+
+def check_mtcnn_host_golden(det, images) -> dict:
+    """`det` (a host MTCNNDetector on the "host" nets) on the golden's frames
+    against fdt's host cascade: rows matched within MTCNN_HOST_SCORE_TOL and
+    MTCNN_HOST_PX_TOL, at most MTCNN_HOST_COUNT_DIFF left unmatched a frame
+    (match_unordered).  Returns the counts and the largest differences."""
+    g = np.load(MTCNN_HOST_GOLDEN)
+    counts, errs = [], []
+    for i, image in enumerate(images):
+        boxes, lms = det.detect_face(image)
+        c = int(g["counts"][i])
+        counts.append(len(boxes))
+        errs.append(match_unordered(boxes, lms, g["boxes"][i, :c], g["landmarks"][i, :c],
+                                    MTCNN_HOST_SCORE_TOL, MTCNN_HOST_PX_TOL,
+                                    MTCNN_HOST_COUNT_DIFF))
+    return {"counts": counts, "golden_counts": g["counts"].tolist(),
+            "score_err": max(e[0] for e in errs), "px_err": max(e[1] for e in errs),
+            "unmatched": [e[2] for e in errs]}
+
+
+def phase_mtcnn_host(device) -> int:
+    """MTCNN's host cascade on the card (the nets there, crops and NMS on the
+    host) on the "host" nets and the sparse golden's two 480×640 frames:
+    against fdt's host cascade (the golden) and against the port's device
+    cascade on the same frames (counts equal, MTCNN_HOST_* tolerances);
+    images/s of both, and each stage's wall ms split into the card's kernel
+    time and the rest, the host's.  Returns the device cascade's K1
+    launches."""
+    from fdt_torch.ops import nms as nms_op
+
+    t0 = time.perf_counter()
+    det = host_cascade(device)
+    images = mtcnn_host_frames()
+    golden = check_mtcnn_host_golden(det, images)
+    cascade = mtcnn_cascade("host", device)
+    nms_op.launches.reset()
+    device_out = [cascade.detect_face(im) for im in images]  # the device cascade's path
+    torch.cuda.synchronize()
+    launches = nms_op.launches.count
+    pair = [match_unordered(*det.detect_face(im), *out, MTCNN_HOST_SCORE_TOL,
+                            MTCNN_HOST_PX_TOL) for im, out in zip(images, device_out)]
+    if not launches:
+        raise AssertionError("mtcnn_host: the device cascade launched no K1")
+    n = len(images)
+    host_rates = _frames_per_s(lambda: [det.detect_face(im) for im in images], n, 2)
+    device_rates = _frames_per_s(lambda: [cascade.detect_face(im) for im in images], n, 2)
+    image = images[0]
+    _, p_align = det.detect_pnet(image)
+    _, r_align = det.detect_rnet(image, p_align)
+    stages = {"pnet": lambda: det.detect_pnet(image),
+              "rnet": lambda: det.detect_rnet(image, p_align),
+              "onet": lambda: det.detect_onet(image, r_align)}
+    for name, fn in stages.items():
+        split = _time_split(fn, iters=2)
+        print(f"[mtcnn_host] {name} wall_ms={split['wall_ms']:.3f} "
+              f"device_ms={split['device_ms']:.3f} "
+              f"host_ms={split['wall_ms'] - split['device_ms']:.3f} "
+              + " ".join(f"{k}_ms={v:.3f}" for k, v in sorted(
+                  split["parts"].items(), key=lambda kv: -kv[1])), flush=True)
+    _phase("mtcnn_host", t0, frames=n, size=f"{MTCNN_W}x{MTCNN_H}", counts=golden["counts"],
+           golden_counts=golden["golden_counts"], unmatched=golden["unmatched"],
+           golden_score_err=f"{golden['score_err']:.3g}",
+           golden_px_err=f"{golden['px_err']:.3g}",
+           device_counts=[len(b) for b, _ in device_out],
+           device_score_err=f"{max(e[0] for e in pair):.3g}",
+           device_px_err=f"{max(e[1] for e in pair):.3g}",
+           host_images_per_s=f"{max(host_rates):.2f}",
+           host_rates=[round(r, 2) for r in host_rates],
+           device_images_per_s=f"{max(device_rates):.2f}",
+           device_rates=[round(r, 2) for r in device_rates],
+           pnet_candidates=len(p_align), rnet_candidates=len(r_align),
+           device_k1_launches=launches, device_tier=cascade.last_tier)
+    return launches
+
+
+def write_frames(directory: pathlib.Path, frames) -> None:
+    """Each BGR frame as <index, 6 digits>.png (encode_png, Up rows, zlib
+    level 1)."""
+    for i, frame in enumerate(frames):
+        (directory / f"{i:06d}.png").write_bytes(encode_png(frame, level=1))
+
+
+def _counts_zero() -> None:
+    from fdt_torch.ops import nms as nms_op
+    from fdt_torch.ops import track as track_op
+    for counter in (nms_op.launches, nms_op.greedy_launches, track_op.launches,
+                    track_op.global_launches):
+        counter.reset()
+
+
+def phase_video(device):
+    """The video paths on the flagship in the tracker configuration of
+    track_detector("trained"): VIDEO_FRAMES frames of the tracking phase's
+    pan, written as PNGs and read back through read_frames (equal to those
+    written), then fed to track_video
+    (host tracker), track_video(device_tracker=True) and track_video_fused at
+    each of VIDEO_BATCHES, each leg's tracks equal (same_tracks) to the
+    tracking phase's unfused path on chunks of the same batch, at
+    TRACK_CHECK and a floor that passes about TRACK_CHECK_ROWS rows a frame
+    (so that the tracks are not empty); K1 calls and K3 launches counted on
+    each leg (1 K1 call a batch; 1 K3 launch a batch on the device and fused
+    legs); K1 on one batch's boxes against its plain version; frames/s of
+    each leg.  Returns (decoded frames, the tracks, the detector, the floor,
+    K1 launches, K3 launches by variant, K1's mask difference)."""
+    import tempfile
+
+    from fdt_torch.config import TRACKER
+    from fdt_torch.data.frames import read_frames
+    from fdt_torch.ops import nms as nms_op
+    from fdt_torch.ops import track as track_op
+    from fdt_torch.track import track_video, track_video_fused
+
+    t0 = time.perf_counter()
+    det = track_detector("trained", device)
+    seq = pan_frames(bench_frame(TRACK_H, TRACK_W), VIDEO_FRAMES)
+    chunks16 = [torch.from_numpy(seq[c:c + TRACK_BATCH]).to(device)
+                for c in range(0, VIDEO_FRAMES, TRACK_BATCH)]
+    floor = rows_floor(det, chunks16)
+    cfg = dataclasses.replace(TRACKER, score_floor=floor, **TRACK_CHECK)
+    # track_video detects at the detector's own thresholds: the floor and
+    # TRACK_NMS, as the unfused path detects
+    det.detect_cfg = dataclasses.replace(det.detect_cfg, conf_thresh=floor,
+                                         nms_thresh=TRACK_NMS)
+    k1_launches, k3_launches = 0, {"smem": 0, "global": 0}
+    lines = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_frames(pathlib.Path(tmp), seq)
+        t = time.perf_counter()
+        frames = list(read_frames(tmp))
+        read_s = time.perf_counter() - t
+        if len(frames) != VIDEO_FRAMES or not all(map(np.array_equal, frames, seq)):
+            raise AssertionError("video: the frames read back differ from those written")
+        for b in VIDEO_BATCHES:
+            chunks = [torch.from_numpy(seq[c:c + b]).to(device)
+                      for c in range(0, VIDEO_FRAMES, b)]
+            want, rows, _ = unfused_tracks(det, chunks, cfg, cap=None)
+            legs = {"host": lambda it, b=b: track_video(it, det, cfg, batch_size=b),
+                    "device": lambda it, b=b: track_video(it, det, cfg, batch_size=b,
+                                                          device_tracker=True),
+                    "fused": lambda it, b=b: track_video_fused(it, det, cfg, batch_size=b)}
+            for leg, run in legs.items():
+                run(frames[:b])  # first use of the batch's shapes
+                _counts_zero()
+                got = run(frames)  # the main path
+                torch.cuda.synchronize()
+                k1, k3 = nms_op.launches.count, track_op.launches.count
+                k3g = track_op.global_launches.count
+                if (k1 != len(chunks) or k3 + k3g != (0 if leg == "host" else len(chunks))
+                        or nms_op.greedy_launches.count):
+                    raise AssertionError(f"video {leg} batch {b}: {k1} K1 calls, {k3} + {k3g} "
+                                         f"K3 launches for {len(chunks)} batches")
+                if not got or not same_tracks(got, want):
+                    raise AssertionError(f"video {leg} batch {b}: {len(got)} tracks != the "
+                                         f"unfused path's {len(want)}")
+                k1_launches += k1
+                k3_launches["smem"] += k3
+                k3_launches["global"] += k3g
+                rates = _frames_per_s(lambda: run(frames), VIDEO_FRAMES, VIDEO_PASSES)
+                lines[f"{leg}_{b}"] = (rates, k1, k3 + k3g, len(got))
+        k1_check = check_k1_tracking(det, chunks16[0], cfg)
+    _phase("video", t0, frames=VIDEO_FRAMES, size=f"{TRACK_W}x{TRACK_H}", floor=floor,
+           read_frames_per_s=f"{VIDEO_FRAMES / read_s:.2f}", tracks=len(want),
+           mean_rows=f"{np.mean([len(r) for r in rows]):.2f}",
+           k1_check_valid=k1_check["valid"], k1_check_keeps=k1_check["keeps"],
+           k1_check_mask_err=k1_check["err"],
+           **{f"{name}_frames_per_s": f"{max(r):.2f}" for name, (r, _, _, _) in lines.items()},
+           **{f"{name}_k1_k3": f"{k1}/{k3}" for name, (_, k1, k3, _) in lines.items()})
+    for name, (rates, k1, k3, n) in lines.items():
+        print(f"[video] {name} rates={[round(r, 2) for r in rates]} k1_calls={k1} "
+              f"k3_launches={k3} tracks={n}", flush=True)
+    return frames, want, det, floor, k1_launches, k3_launches, k1_check["err"]
+
+
+def phase_video_render(frames, tracks) -> None:
+    """render_tracks over the video phase's frames and tracks into a
+    temporary directory (800 px wide, as fdt's default): the frame count,
+    frames/s, and the first tracks' second boxes read back from their PNG
+    frames with the track's colour on the box's top edge (the colours drawn
+    from the same RandomState stream, hue modulo 256)."""
+    import tempfile
+
+    from fdt_torch.data.image_io import imread
+    from fdt_torch.track.display import _track_colour, render_tracks
+
+    t0 = time.perf_counter()
+    seed, width = 0, 800
+    with tempfile.TemporaryDirectory() as out:
+        t = time.perf_counter()
+        n = render_tracks(iter(frames), tracks, out_dir=out, dis_width=width,
+                          rng=np.random.RandomState(seed))
+        render_s = time.perf_counter() - t
+        if n != len(frames) or len(list(pathlib.Path(out).glob("*.png"))) != n:
+            raise AssertionError(f"video_render: {n} frames rendered of {len(frames)}")
+        # the colour each track takes at its start frame, in render_tracks' order
+        rng, colours = np.random.RandomState(seed), {}
+        for frame_num in range(1, n + 1):
+            for i, track in enumerate(tracks):
+                if track["start_frame"] == frame_num:
+                    colours[i] = _track_colour(rng.randint(0, 360))
+        height = int(frames[0].shape[0] * width / frames[0].shape[1])
+        ratio_w, ratio_h = width / 640, height / 480
+        checked = 0
+        for i, track in enumerate(tracks):
+            if len(track["bboxes"]) < 2 or track["start_frame"] + 1 > n or checked == 5:
+                continue
+            x1, y1, x2, _ = track["bboxes"][1]
+            y, xa, xb = int(ratio_h * y1), int(ratio_w * x1), int(ratio_w * x2)
+            if not (0 <= y < height and 0 <= xa < xb < width):
+                continue
+            shown = imread(pathlib.Path(out) / f"{track['start_frame'] + 1:06d}.png")
+            if not (shown[y, xa:xb + 1] == colours[i]).all(axis=1).any():
+                raise AssertionError(f"video_render: track {i}'s box lacks its colour "
+                                     f"{colours[i]}")
+            checked += 1
+    if not checked:
+        raise AssertionError("video_render: no track's box to check")
+    _phase("video_render", t0, frames=n, tracks=len(tracks), width=width,
+           frames_per_s=f"{n / render_s:.2f}", boxes_checked=checked)
+
+
+def phase_video_demo(det, floor, facebox_det, device, frames) -> int:
+    """run_video through each family's demo over the first DEMO_FRAMES frames
+    at 640×480: the flagship (track_detector("trained") at the video floor),
+    FaceBoxes (seeded, 1024² input) and MTCNN's host and device cascades (the
+    "host" nets): each frame's answer, recorded from the detector, equal to
+    a direct call on that frame; the demo's average fps.  Returns the K1
+    launches of the demos."""
+    from fdt_torch.apps.video import facebox_demo, mtcnn_demo, pyramidbox_demo
+    from fdt_torch.ops import nms as nms_op
+
+    t0 = time.perf_counter()
+    cascade = mtcnn_cascade("host", device)
+    families = {"pyramid": (det, "detect_face", pyramidbox_demo, dict(threshold=floor)),
+                "facebox": (facebox_det, "detect", facebox_demo, {}),
+                "mtcnn_host": (host_cascade(device), "detect_face", mtcnn_demo, {}),
+                "mtcnn_device": (cascade, "detect_face", mtcnn_demo, {})}
+    launches, fields = 0, {}
+    for name, (detector, method, demo, kw) in families.items():
+        call, calls = getattr(detector, method), []
+
+        def recorded(frame, *a, call=call, calls=calls, **k):
+            out = call(frame, *a, **k)
+            calls.append((frame, a, k, out))
+            return out
+
+        demo(detector, frames=iter(frames[:2]), **kw)  # first use of the frame shape
+        cascade._start_tier.clear()  # the demo and the direct calls climb alike
+        setattr(detector, method, recorded)
+        try:
+            nms_op.launches.reset()
+            fps = demo(detector, frames=iter(frames[:DEMO_FRAMES]), **kw)  # the main path
+            torch.cuda.synchronize()
+            k1 = nms_op.launches.count
+        finally:
+            delattr(detector, method)
+        cascade._start_tier.clear()
+        for frame, a, k, out in calls:
+            want = call(frame, *a, **k)
+            got, want = ((out, want) if isinstance(out, tuple) else ((out,), (want,)))
+            if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"video_demo {name}: an answer differs from a direct call")
+        if len(calls) != DEMO_FRAMES or (name != "mtcnn_host" and not k1):
+            raise AssertionError(f"video_demo {name}: {len(calls)} frames, {k1} K1 launches")
+        launches += k1
+        fields[f"{name}_fps"] = f"{fps:.2f}"
+        fields[f"{name}_k1"] = k1
+        fields[f"{name}_rows"] = sum(len(out[0] if isinstance(out, tuple) else out)
+                                     for *_, out in calls)
+    _phase("video_demo", t0, frames=DEMO_FRAMES, **fields)
+    return launches
+
+
 @contextlib.contextmanager
 def warnings_kept():
     """Collect the warnings of the body (the cascade's saturation notes)."""
@@ -2815,6 +3189,10 @@ def main() -> int:
     phase_serving(det32, facebox_det)
     http_launches = phase_http(det16)
     eval_launches = phase_eval(det32, facebox_det, device)
+    host_launches = phase_mtcnn_host(device)
+    frames, tracks, video_det, floor, video_k1, video_k3, video_k1_err = phase_video(device)
+    phase_video_render(frames, tracks)
+    demo_launches = phase_video_demo(video_det, floor, facebox_det, device, frames)
 
     # PyTorch has no NMS call (and torchvision is not installed) and no
     # greedy-association call: no library_ms
@@ -2823,8 +3201,9 @@ def main() -> int:
         "source": "fdt_torch/csrc/nms_tiled.cu",
         "replaces": "fdt/ops/pallas_nms.py:69",
         "launches": (launches + mtcnn_launches + track_k1_launches + http_launches
-                     + eval_launches),
-        "max_abs_err": max(k1["max_abs_err"], boxes_err, mtcnn_err, track_k1_err),
+                     + eval_launches + host_launches + video_k1 + demo_launches),
+        "max_abs_err": max(k1["max_abs_err"], boxes_err, mtcnn_err, track_k1_err,
+                           video_k1_err),
         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": None,
         "device_ms": k1["device_ms"], "host_ms": k1["host_ms"]}, {
@@ -2838,14 +3217,15 @@ def main() -> int:
         "name": "track_assoc_smem (K3, shared memory)", "route": "cuda",
         "source": "fdt_torch/csrc/track_assoc.cu",
         "replaces": "fdt/track/device_tracker.py:93",
-        "launches": k3["launches"], "max_abs_err": 0.0,  # bit-equal, or the phase raised
+        "launches": k3["launches"] + video_k3["smem"],
+        "max_abs_err": 0.0,  # bit-equal, or the phase raised
         "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"], "library_ms": None,
         "device_ms": k3["device_ms"], "host_ms": k3["host_ms"]}, {
         "name": "track_assoc_global (K3, device memory)", "route": "cuda",
         "source": "fdt_torch/csrc/track_assoc.cu",
         "replaces": "fdt/track/device_tracker.py:93",
-        "launches": k3_global["launches"], "max_abs_err": 0.0,
+        "launches": k3_global["launches"] + video_k3["global"], "max_abs_err": 0.0,
         "ms": k3_global["ms"], "plain_ms": k3_global["plain_ms"],
         "bound_ms": k3_global["bound_ms"], "bound_by": k3_global["bound_by"],
         "library_ms": None, "device_ms": k3_global["device_ms"],

@@ -12,13 +12,13 @@ tensor goes to pinned host memory by an asynchronous copy.  The host waits
 on that copy's CUDA event, the one blocking read a chunk, so throughput
 follows the card, not the round trips.
 
-The video entry point (`track_video_fused`, which decodes with cv2) is not
-ported yet.
+`track_video_fused` takes an iterable of BGR frames where fdt's takes a video
+file: the port decodes no video.
 """
 from __future__ import annotations
 
 from collections import OrderedDict, deque
-from typing import List
+from typing import Iterable, List
 
 import numpy as np
 import torch
@@ -198,3 +198,27 @@ class FusedVideoTracker(DeviceIoUTracker):
         while self._pending:  # drain the pipeline
             self._drain_one()
         return super().flush()
+
+
+def track_video_fused(frames: Iterable[np.ndarray], detector, cfg: TrackerConfig = TRACKER,
+                      batch_size: int = 8, frame_size=(640, 480),
+                      det_cap: int | None = None) -> List[dict]:
+    """`track_video` with the fused pipeline: one FusedVideoTracker.step_frames
+    a batch of `batch_size` frames, each fitted to `frame_size` (width,
+    height) as cv2.resize fits it."""
+    from fdt_torch.data.frames import fit_frame
+
+    tracker = FusedVideoTracker(detector, cfg, det_cap=det_cap)
+    batch: List[np.ndarray] = []
+
+    def run_batch():
+        if batch:
+            tracker.step_frames(np.stack(batch))
+            batch.clear()
+
+    for frame in frames:
+        batch.append(fit_frame(frame, frame_size))
+        if len(batch) == batch_size:
+            run_batch()
+    run_batch()
+    return tracker.flush()

@@ -16,7 +16,8 @@ numpy float64, with its three quirks kept so that track IDs match:
 Track schema: {'bboxes': [[x1, y1, x2, y2], ...], 'max_score': float,
 'start_frame': int}, saved with np.save(path, np.array(tracks)).
 
-The video entry point (`track_video`, which decodes with cv2) is not ported yet.
+`track_video` takes an iterable of BGR frames where fdt's takes a video file:
+the port decodes no video (fdt_torch.data.frames reads a directory of frames).
 """
 from __future__ import annotations
 
@@ -101,6 +102,53 @@ def track_detections(per_frame_rows: Iterable[np.ndarray],
     tracker = IoUTracker(cfg)
     for rows in per_frame_rows:
         tracker.step(rows)
+    return tracker.flush()
+
+
+def track_video(frames: Iterable[np.ndarray], detector, cfg: TrackerConfig = TRACKER,
+                batch_size: int = 8, frame_size=(640, 480),
+                detect_threshold: float | None = None,
+                device_tracker: bool = False) -> List[dict]:
+    """Offline tracking over a sequence of frames (iouTracke_cal.py's loop).
+
+    `frames`: BGR uint8 [H, W, 3] frames (fdt_torch.data.read_frames of a
+    frame directory, or any iterable), each fitted to `frame_size` (width,
+    height) as cv2.resize fits it (fdt_torch.data.fit_frame) and detected in
+    batches of `batch_size` on the detector's device, a
+    fdt_torch.infer.PyramidBoxDetector.  device_tracker=True runs the greedy
+    association on that device too (DeviceIoUTracker: kernel K3 on the card,
+    one launch a batch).
+    """
+    from fdt_torch.data.frames import fit_frame
+    from fdt_torch.infer.pyramidbox import detections_to_rows
+
+    thr = cfg.score_floor if detect_threshold is None else detect_threshold
+    if device_tracker:
+        from fdt_torch.track.device_tracker import DeviceIoUTracker
+        tracker = DeviceIoUTracker(cfg, device=detector.device)
+    else:
+        tracker = IoUTracker(cfg)
+    w, h = frame_size
+    scale = [w, h, w, h]
+    batch: List[np.ndarray] = []
+
+    def run_batch():
+        if not batch:
+            return
+        det = detector.detect_tensor(np.stack(batch))
+        rows_list = [detections_to_rows(det[i], thr, scale) for i in range(det.shape[0])]
+        if device_tracker:
+            tracker.step_chunk(rows_list)  # one device call a batch
+        else:
+            for rows in rows_list:
+                tracker.step(rows)
+        batch.clear()
+
+    for frame in frames:
+        batch.append(fit_frame(frame, frame_size))
+        if len(batch) == batch_size:
+            run_batch()
+    run_batch()
     return tracker.flush()
 
 

@@ -397,3 +397,67 @@ def test_eval_pyramidbox_on_card_equals_direct_detect_face(try3_on_card, tmp_pat
     assert nms_op.launches.count == len(images)
     np.testing.assert_array_equal(dump, chip_smoke.reference_dump(want, anno))
     assert dump[0, :-1].sum() > 0
+
+
+@pytest.fixture
+def try3_tracker_on_card(card):
+    """The trained try3 on the card detecting at conf 0.05 / NMS 0.35, six
+    frames of a seeded 128² frame panned 3 px, and a tracker setting at
+    chip_smoke's TRACK_CHECK whose floor passes rows a frame."""
+    import dataclasses
+
+    from fdt_torch.config import TRACKER, DetectConfig
+    from fdt_torch.infer import PyramidBoxDetector
+    from fdt_torch.models import load_pyramidbox
+
+    det = PyramidBoxDetector(load_pyramidbox(str(REPO / chip_smoke.VARIANT_WEIGHTS["try3"]),
+                                             "try3"), "try3", device=card,
+                             detect_cfg=dataclasses.replace(DetectConfig(), conf_thresh=0.05,
+                                                            nms_thresh=0.35))
+    base = np.random.RandomState(7).randint(0, 255, (128, 128, 3), np.uint8)
+    frames = [np.roll(base, 3 * f, axis=1) for f in range(6)]
+    cfg = dataclasses.replace(TRACKER, score_floor=0.08, **chip_smoke.TRACK_CHECK)
+    return det, frames, cfg
+
+
+def test_video_legs_on_card_equal_the_unfused_path(try3_tracker_on_card):
+    """track_video (host and device trackers) and track_video_fused on the
+    card at batch 3: tracks equal to chip_smoke.unfused_tracks on chunks of 3
+    (same_tracks), one K1 call a batch, one K3 launch a batch where the
+    association runs on the card."""
+    from fdt_torch.ops import track as track_op
+    from fdt_torch.track import track_video, track_video_fused
+
+    det, frames, cfg = try3_tracker_on_card
+    chunks = [torch.from_numpy(np.stack(frames[c:c + 3])).to(det.device) for c in (0, 3)]
+    want, _, _ = chip_smoke.unfused_tracks(det, chunks, cfg, cap=None)
+    assert want
+    legs = {"host": lambda: track_video(frames, det, cfg, batch_size=3, frame_size=(128, 128)),
+            "device": lambda: track_video(frames, det, cfg, batch_size=3, frame_size=(128, 128),
+                                          device_tracker=True),
+            "fused": lambda: track_video_fused(frames, det, cfg, batch_size=3,
+                                               frame_size=(128, 128))}
+    for leg, run in legs.items():
+        nms_op.launches.reset()
+        track_op.launches.reset()
+        track_op.global_launches.reset()
+        got = run()
+        assert chip_smoke.same_tracks(got, want), leg
+        assert nms_op.launches.count == 2
+        assert track_op.launches.count + track_op.global_launches.count == (
+            0 if leg == "host" else 2)
+
+
+def test_mtcnn_host_cascade_on_card(card):
+    """The host cascade with its nets on the card: against the same cascade
+    on the CPU at 120×160 (counts equal, 1e-3 px, 1e-4 in score: the nets'
+    float32 sums differ), and against fdt's golden at 480×640 within the
+    golden's bound (chip_smoke.check_mtcnn_host_golden)."""
+    image = chip_smoke.golden_frame(1, 120, 160)
+    got = chip_smoke.host_cascade(card).detect_face(image)
+    want = chip_smoke.host_cascade("cpu").detect_face(image)
+    assert got[0].shape == want[0].shape and len(want[0])
+    chip_smoke.match_unordered(*got, *want, 1e-4, 1e-3)
+    out = chip_smoke.check_mtcnn_host_golden(chip_smoke.host_cascade(card),
+                                             chip_smoke.mtcnn_host_frames())
+    assert max(out["unmatched"]) <= chip_smoke.MTCNN_HOST_COUNT_DIFF

@@ -1,10 +1,11 @@
 """fdt_torch.data.image_io against cv2.imdecode / cv2.imread (IMREAD_COLOR).
 
-PNG is decoded by the port itself and must be bit-equal to cv2 for 8-bit
-gray, BGR and BGRA images of odd widths with each of the five row filters
-forced (chip_smoke.encode_png writes them), and for cv2's own PNGs, whose
-filters vary by row.  JPEG and the PNG kinds the port leaves to Pillow are
-held to cv2 by their largest difference, measured here (Pillow 12.1.0
+Pillow decodes every format.  PNG must be bit-equal to cv2 for 8-bit gray,
+BGR and BGRA images of odd widths with each of the five row filters forced
+(chip_smoke.encode_png writes them), for cv2's own PNGs, whose filters vary
+by row, and for palette, 16-bit and gray+alpha PNGs; the PNGs cv2 refuses
+(a bad CRC, short or non-zlib data, a header over cv2's limits) give None.
+JPEG is held to cv2 by its largest difference, measured here (Pillow 12.1.0
 against cv2 5.0.0: 0 gray levels) and pinned.
 """
 import io
@@ -101,13 +102,16 @@ def test_png_kinds_left_to_pillow_equal_cv2():
         np.testing.assert_array_equal(imdecode(data), _cv2(data))
 
 
-def test_without_pillow_png_decodes_and_jpeg_names_pillow(monkeypatch):
+def test_without_pillow_png_and_jpeg_name_pillow(monkeypatch):
+    """Pillow decodes every format: without it a PNG and a JPEG both raise an
+    ImportError that names it, and bytes that are no image still give None."""
     monkeypatch.setitem(sys.modules, "PIL", None)  # import PIL now raises
     img = _image("bgr")
-    np.testing.assert_array_equal(imdecode(chip_smoke.encode_png(img)), img)
     ok, enc = cv2.imencode(".jpg", img)
-    with pytest.raises(ImportError, match="Pillow"):
-        imdecode(enc.tobytes())
+    assert ok
+    for data in (chip_smoke.encode_png(img), enc.tobytes()):
+        with pytest.raises(ImportError, match="Pillow"):
+            imdecode(data)
     assert imdecode(b"not an image") is None
 
 
