@@ -38,7 +38,21 @@ Phases, each printing one line with its seconds:
                against the JAX goldens, then bf16 images/s at batch 8, 640²;
                try2, try4 and try5 on seeded weights: a detect call whose
                source shapes are those fdt recorded.
-  7. mtcnn  — the MTCNN cascade at bench.py's configuration (480×640, batch
+  7. int8   — int8 inference (quant="int8"): K5 (the activation quantizer)
+               and K4 (the int8 convolution) bit-equal to their plain
+               versions on INT8_EDGES and on every int8 conv of the
+               flagship (at the main path's batch 8, 640² too), try1 and
+               FaceBoxes on the convs' own inputs; the float32 int8
+               flagship on the golden frame against fdt's int8 golden
+               (INT8_GOLDEN), with a control that a float path fails; the
+               bf16 int8 flagship at batch 8, 640² (111 K4 and K5
+               launches, one K1) against the bf16 float flagship on the
+               same frames, images/s of both; try1 and
+               FaceBoxes once with int8; a profiler split of one int8 call;
+               K4 and K5 timed at the three heaviest convs beside the plain
+               versions, the bounds, torch._int_mm on the same GEMM and
+               cuDNN's bf16 conv.
+  8. mtcnn  — the MTCNN cascade at bench.py's configuration (480×640, batch
                32, the ladder FAST → MID → full) on seeded weights: the
                "sparse" golden batch against fdt's (counts, flags and tier
                equal, scores within 1e-3, boxes and landmarks within 1e-2
@@ -47,7 +61,7 @@ Phases, each printing one line with its seconds:
                per-level candidates (32 × 8192, segmented) bit-equal to its
                plain version and timed; the batch's first frame against
                detect_face; DetectionService("mtcnn") under 4 threads.
-  8. tracking — bench.py's tracker configuration (64 frames of 480×640 panned
+  9. tracking — bench.py's tracker configuration (64 frames of 480×640 panned
                6 px a frame, chunks of 16, rows capped at 32, t_max 256): K3
                (the greedy association scan; a shared-memory variant and a
                device-memory one for shapes past it) against its plain
@@ -61,11 +75,11 @@ Phases, each printing one line with its seconds:
                of the device-rows and host-rows legs, its tracks bit-equal to
                the unfused path's (also through the grow-and-redo path), and a
                torch.profiler split of one fused chunk.
-  9. serving — DetectionService answers 16 requests from 4 threads (float32)
+ 10. serving — DetectionService answers 16 requests from 4 threads (float32)
                for the pyramidbox family (640²) and the facebox family (mixed
                sizes); each answer agrees with the direct call on its frame,
                up to the summation order of another batch size.
- 10. http    — the bf16 flagship at 640² behind make_http_server: a fresh
+ 11. http    — the bf16 flagship at 640² behind make_http_server: a fresh
                service's warmup() (timed), then 16 PNG bodies (encode_png)
                from 4 threads, twice, each answer against a direct
                detect_tensor call, K1 once a batch; /healthz before and
@@ -75,7 +89,7 @@ Phases, each printing one line with its seconds:
                a request; 640×480 PNGs (Paeth rows, and the row filters
                Pillow's encoder picks) and a JPEG decoded by the port's
                decoder and by Pillow, timed.
- 11. eval    — scripts/my_test.py's protocol on 24 seeded noise PNGs of 8
+ 12. eval    — scripts/my_test.py's protocol on 24 seeded noise PNGs of 8
                sizes (320–1024 a side) with an anno file: eval_pyramidbox
                (float32 flagship, one K1 launch an image) bit-equal to direct
                detect_face calls, 2 merged shards bit-equal, the per-shape
@@ -83,21 +97,21 @@ Phases, each printing one line with its seconds:
                (one K1 launch a chunk; images at their bucket size against
                the native rows); eval_facebox and eval_mtcnn(bucketed=True)
                bit-equal to direct calls; images/s of each.
- 12. mtcnn_host — MTCNN's host cascade (nets on the card, crops and NMS on
+ 13. mtcnn_host — MTCNN's host cascade (nets on the card, crops and NMS on
                the host) on the "host" nets and the sparse golden's two
                480×640 frames: against fdt's host cascade (the golden
                mtcnn_host_sparse.npz) and the port's device cascade within
                fdt's own host-to-device bound; images/s of both cascades and
                each stage's wall ms split into kernel time and host time.
- 13. video   — VIDEO_FRAMES frames of the tracking pan written as PNGs and
+ 14. video   — VIDEO_FRAMES frames of the tracking pan written as PNGs and
                read back through read_frames; track_video (host and device
                trackers) and track_video_fused at batch 8 and 16 on the
                trained flagship in the tracker configuration: tracks equal to
                the unfused path's, K1 and K3 counted on each leg, K1 on one
                batch's boxes against its plain version, frames/s.
- 14. video_render — render_tracks of those tracks into PNGs: frames/s, and
+ 15. video_render — render_tracks of those tracks into PNGs: frames/s, and
                boxes read back in their track's colour.
- 15. video_demo — run_video with each family (flagship, FaceBoxes, MTCNN's
+ 16. video_demo — run_video with each family (flagship, FaceBoxes, MTCNN's
                host and device cascades) over DEMO_FRAMES frames: answers
                equal to direct calls, the average fps, K1 launches.
 Then a JSON line of the kernels and, last, {"ok": true, "device": {...}}.
@@ -131,10 +145,11 @@ HANG_LIMIT_S = 240
 WARMUP_S = 2.0  # before each throughput measurement
 SIZE, BATCH = 640, 8  # the flagship: bench.py:167-200
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and float32
-# non-tensor-core operations/s
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, float32
+# non-tensor-core operations/s and dense int8 tensor-core operations/s
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
+PEAK_INT8_OPS_S = 1979e12
 # float32 operations of one pairwise overlap test (2 min, 2 max, 2 sub,
 # 2 clamp, 1 mul for the intersection; add, sub, div, compare)
 OPS_PER_PAIR = 13
@@ -216,6 +231,55 @@ TRACK_WEIGHTS_SEED = 0
 # about 8 rows a frame, where rows do extend tracks.
 TRACK_CHECK = {"sigma_h": 0.0, "t_min": 1}
 TRACK_CHECK_ROWS = 8
+
+# int8 inference (fdt/ops/quant.py; kernels K5 and K4): the golden is fdt's
+# int8 detector (precision "highest", on the CPU) on the flagship golden's
+# frame, weights and thresholds.  Two row lists are compared over their top
+# INT8_ROWS rows by fdt's int8-against-float protocol (tests/test_quant.py:
+# 160-175): the median IoU of matched rows and their largest score
+# difference at fdt's bounds, and the share of rows matched at IoU > 0.5 at
+# least int8_min_matched: fdt's 90%, or, where fdt's own int8 detector
+# matches fewer of its float rows on the same input, that share less
+# INT8_MATCH_SLACK.  The per-tensor int8 rounding moves a level wherever the
+# float arithmetic before it differs in the last bit (BatchNorm, the
+# upsample; ROADMAP Queue 3), so the port's int8 drifts from fdt's as fdt's
+# own int8 does under a perturbation that small; on the 640² noise frame
+# fdt's int8 matches 65% of its float rows (kept in the golden)
+INT8_GOLDEN = GOLDEN_DIR / "flagship_int8.npz"
+INT8_ROWS = 100
+INT8_MATCHED, INT8_MEDIAN_IOU, INT8_SCORE_DIFF = 0.9, 0.95, 0.08
+INT8_MATCH_SLACK = 0.1
+# K4 and K5 against their plain versions on the card: name → (batch, cin, h,
+# w, cout, kernel, stride, padding, dilation, groups, dtype, channels_last,
+# bias, fill); fill None is seeded noise ×3, "zero" a zero tensor (scale 1),
+# "nan-inf" a NaN and an inf among the noise (amax NaN: scale 1), "inf" one
+# inf (scale inf: the outputs are NaN and ±inf), "offset" the noise as a
+# channels-last view one element into its storage (not 16-byte aligned)
+INT8_EDGES = {
+    "stem-k147-f32-nchw": (2, 3, 40, 40, 64, 7, 2, 3, 1, 1, "float32", False, False, None),
+    "stem-k147-bf16-cl": (2, 3, 40, 40, 64, 7, 2, 3, 1, 1, "bfloat16", True, False, None),
+    "facebox-stem-s4-bf16-cl": (1, 3, 64, 64, 24, 7, 4, 3, 1, 1, "bfloat16", True, True, None),
+    "head-n4-bf16-cl": (2, 256, 10, 10, 4, 3, 1, 1, 1, 1, "bfloat16", True, True, None),
+    "head-n2-f32-nchw": (2, 256, 10, 10, 2, 3, 1, 1, 1, 1, "float32", False, True, None),
+    "grouped-1x1-bf16-cl": (2, 256, 10, 10, 256, 1, 1, 0, 1, 4, "bfloat16", True, True, None),
+    "grouped-1x1-f32-nchw": (2, 256, 10, 10, 256, 1, 1, 0, 1, 4, "float32", False, False, None),
+    "dilated-f32-nchw": (2, 256, 10, 10, 128, 3, 1, 2, 2, 1, "float32", False, True, None),
+    "strided-odd-bf16-cl": (2, 128, 21, 19, 128, 3, 2, 1, 1, 1, "bfloat16", True, True, None),
+    "cin12-f32-cl": (2, 12, 17, 17, 40, 3, 1, 1, 1, 1, "float32", True, True, None),
+    "k5-s2-f32-nchw": (1, 48, 33, 33, 64, 5, 2, 2, 1, 1, "float32", False, True, None),
+    "n100-k4608-bf16-cl": (1, 512, 6, 7, 100, 3, 1, 1, 1, 1, "bfloat16", True, True, None),
+    "zero-bf16-cl": (2, 64, 8, 8, 64, 3, 1, 1, 1, 1, "bfloat16", True, True, "zero"),
+    "zero-f32-nchw": (2, 64, 8, 8, 64, 3, 1, 1, 1, 1, "float32", False, True, "zero"),
+    "nan-inf-f32-nchw": (1, 64, 8, 8, 32, 3, 1, 1, 1, 1, "float32", False, True, "nan-inf"),
+    "inf-bf16-cl": (1, 64, 8, 8, 32, 3, 1, 1, 1, 1, "bfloat16", True, True, "inf"),
+    "offset-view-bf16-cl": (2, 64, 9, 7, 64, 3, 1, 1, 1, 1, "bfloat16", True, True, "offset"),
+    "offset-view-f32-cl": (2, 32, 9, 7, 48, 3, 1, 1, 1, 1, "float32", True, False, "offset"),
+    # 4.7M elements: more than K5's grids cover in one pass (kMaxPartials
+    # blocks of pass 1, kMaxQuantBlocks of pass 2), so both grid-stride loops
+    # take several turns
+    "past-caps-bf16-cl": (8, 64, 96, 96, 32, 3, 1, 1, 1, 1, "bfloat16", True, True, None),
+    "past-caps-f32-nchw": (8, 64, 96, 96, 32, 3, 1, 1, 1, 1, "float32", False, True, None),
+}
 
 # The video paths: frames of the tracking phase's pan written as PNGs and
 # read back through fdt_torch.data.read_frames, tracked at fdt's batch of 8
@@ -1517,11 +1581,436 @@ def _mtcnn_main_path(name, cascade, staged) -> dict:
             "boxes": boxes, "lms": lms}
 
 
+def int8_edge_case(name: str, device="cpu"):
+    """INT8_EDGES[name] → (x [B,C,H,W], an Int8Conv2d of seeded weights
+    quantized and cast to x's dtype, both on `device`, whether x is
+    channels-last)."""
+    from fdt_torch.ops.quant import Int8Conv2d
+
+    b, cin, h, w, cout, k, s, p, d, groups, dtype, cl, bias, fill = INT8_EDGES[name]
+    rng = np.random.RandomState(sum(map(ord, name)))
+    x = rng.randn(b, cin, h, w).astype(np.float32) * 3
+    if fill == "zero":
+        x[:] = 0
+    elif fill == "nan-inf":
+        x.flat[5], x.flat[17] = np.nan, np.inf
+    elif fill == "inf":
+        x.flat[3] = -np.inf
+    conv = Int8Conv2d(cin, cout, k, s, p, dilation=d, groups=groups, bias=bias)
+    with torch.no_grad():
+        conv.weight.copy_(torch.from_numpy(
+            rng.randn(*conv.weight.shape).astype(np.float32) * 0.05))
+        if bias:
+            conv.bias.copy_(torch.from_numpy(rng.randn(cout).astype(np.float32)))
+    conv.quantize_weights()
+    xt = torch.from_numpy(x).to(device, getattr(torch, dtype))
+    if cl:
+        xt = xt.contiguous(memory_format=torch.channels_last)
+    if fill == "offset":
+        storage = torch.empty(xt.numel() + 1, dtype=xt.dtype, device=device)
+        storage[1:] = xt.permute(0, 2, 3, 1).reshape(-1)
+        xt = storage[1:].view(b, h, w, cin).permute(0, 3, 1, 2)
+    return xt, conv.to(device, xt.dtype), cl
+
+
+def _int8_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want| in float32, a NaN equal to a NaN; inf where only
+    one of them is NaN."""
+    g, w = got.float(), want.float()
+    if not torch.equal(g.isnan(), w.isnan()):
+        return float("inf")
+    differ = (g != w) & ~g.isnan()
+    return float((g - w).abs()[differ].max()) if bool(differ.any()) else 0.0
+
+
+def check_int8_conv(conv, x: torch.Tensor) -> tuple[float, float]:
+    """K5 and K4 on x against their plain versions on x's device: (K5's
+    largest error over q and the scale, K4's over the conv's output)."""
+    from fdt_torch.ops import quant
+
+    xq, sx = quant.quantize_int8(x)
+    xq_p, sx_p = quant.quantize_int8_plain(x)
+    k5 = max(_int8_err(xq, xq_p), _int8_err(sx, sx_p))
+    wpack, sw = conv._int8
+    bias = None if conv.bias is None else conv.bias.to(x.dtype)
+    args = dict(kernel=conv.kernel_size, stride=conv.stride, padding=conv.padding,
+                dilation=conv.dilation, groups=conv.groups, out_dtype=x.dtype,
+                channels_last=quant.is_channels_last(x))
+    y = quant.conv_int8(xq, sx, wpack, sw, bias, **args)
+    return k5, _int8_err(y, quant.conv_int8_plain(xq_p, sx_p, wpack, sw, bias, **args))
+
+
+def int8_convs_of(model) -> list:
+    """The Int8Conv2d modules of a model (each runs in int8)."""
+    from fdt_torch.ops.quant import Int8Conv2d
+
+    return [m for m in model.modules() if isinstance(m, Int8Conv2d)]
+
+
+def check_int8_model(model, run) -> dict:
+    """run() through `model`, each int8 conv checked on its own input
+    (check_int8_conv): the convs run and checked (a detect runs no conv of
+    PyramidBox's head-supervision branch), their geometries, the (kernel,
+    stride, dilation) among them, the largest K5 and K4 errors."""
+    errs, geoms, seen = [0.0, 0.0], set(), [0]
+
+    def hook(mod, inputs, _out):
+        e5, e4 = check_int8_conv(mod, inputs[0])
+        errs[0], errs[1] = max(errs[0], e5), max(errs[1], e4)
+        seen[0] += 1
+        geoms.add((mod.in_channels, mod.out_channels, mod.kernel_size, mod.stride,
+                   mod.padding, mod.dilation, mod.groups))
+
+    handles = [m.register_forward_hook(hook) for m in int8_convs_of(model)]
+    try:
+        run()
+    finally:
+        for h in handles:
+            h.remove()
+    return {"convs": seen[0], "geometries": len(geoms), "k5_err": errs[0], "k4_err": errs[1],
+            "kernels": sorted({(g[2][0], g[3][0], g[5][0]) for g in geoms})}
+
+
+def flagship_batch() -> np.ndarray:
+    """The bf16 flagship's batch: BATCH seeded noise frames of SIZE²."""
+    return np.random.RandomState(1).randint(0, 256, (BATCH, SIZE, SIZE, 3), dtype=np.uint8)
+
+
+def _iou_np(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    lt = np.maximum(a[:, None, :2], b[None, :, :2])
+    rb = np.minimum(a[:, None, 2:], b[None, :, 2:])
+    inter = np.clip(rb - lt, 0, None).prod(-1)
+    area = (a[:, 2] - a[:, 0]) * (a[:, 3] - a[:, 1])
+    area_b = (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1])
+    return inter / (area[:, None] + area_b[None] - inter)
+
+
+def int8_drift(want: np.ndarray, got: np.ndarray, n: int = INT8_ROWS) -> dict:
+    """fdt's int8-against-float measures (tests/test_quant.py:160-175) over
+    the first n rows of two score-sorted [score, x1, y1, x2, y2] lists: the
+    share of `want`'s rows that a row of `got` overlaps at IoU > 0.5, the
+    median best IoU of those, and the largest score difference of those
+    pairs."""
+    want, got = want[:n], got[:n]
+    if len(want) < n or len(got) < n:
+        raise AssertionError(f"need {n} rows, got {len(want)} and {len(got)}")
+    iou = _iou_np(want[:, 1:], got[:, 1:])
+    best = iou.max(1)
+    m = best > 0.5
+    score = np.abs(want[m, 0] - got[iou.argmax(1)[m], 0])
+    return {"matched": float(m.mean()), "median_iou": float(np.median(best[m])) if m.any() else 0.0,
+            "score_diff": float(score.max()) if m.any() else float("inf")}
+
+
+def int8_bf16_limits(golden) -> dict:
+    """The bf16 int8 flagship against the bf16 float one on flagship_batch():
+    fdt's bounds, each loosened where fdt's own bf16 int8 detector is worse
+    against its float one on the same frames (the golden's fdt_bf16_*, one
+    value an image): the batch's mean matched share at least
+    int8_min_matched of fdt's mean, the lowest median IoU at least fdt's
+    lowest, the largest score difference at most fdt's largest."""
+    return {"matched": int8_min_matched(float(np.mean(golden["fdt_bf16_matched"]))),
+            "median_iou": min(INT8_MEDIAN_IOU, float(np.min(golden["fdt_bf16_median_iou"]))),
+            "score_diff": max(INT8_SCORE_DIFF, float(np.max(golden["fdt_bf16_score_diff"])))}
+
+
+def int8_min_matched(fdt_float_matched: float) -> float:
+    """The share of rows that must match: fdt's 90%, or fdt's own
+    float-to-int8 share on the same input less INT8_MATCH_SLACK, the lower."""
+    return min(INT8_MATCHED, fdt_float_matched - INT8_MATCH_SLACK)
+
+
+def check_int8_drift(want: np.ndarray, got: np.ndarray, min_matched: float, what: str) -> dict:
+    """int8_drift within fdt's bounds on the score and IoU of matched rows and
+    at least `min_matched` matched; raises AssertionError."""
+    d = int8_drift(want, got)
+    if (d["matched"] < min_matched or d["median_iou"] < INT8_MEDIAN_IOU
+            or d["score_diff"] > INT8_SCORE_DIFF):
+        raise AssertionError(f"{what}: int8 drift {d} beyond matched >= {min_matched:.3f}, "
+                             f"median IoU >= {INT8_MEDIAN_IOU}, score <= {INT8_SCORE_DIFF}")
+    return d
+
+
+def check_int8_golden(gq, rows: np.ndarray, what: str) -> dict:
+    """rows against the int8 golden's: check_int8_drift at int8_min_matched
+    of fdt's own float-to-int8 share, and a control that a detector which
+    skipped quantization fails: rows must match more of the golden's rows
+    than fdt's float golden rows (GOLDEN) do, 0.65 on the 640² frame, where
+    a float path matches as many as fdt's float does.  Adds that share as
+    float_matched; raises AssertionError."""
+    d = check_int8_drift(gq["rows"], rows, int8_min_matched(float(gq["fdt_float_matched"])),
+                         what)
+    control = int8_drift(gq["rows"], np.load(GOLDEN)["rows"])["matched"]
+    if d["matched"] <= control:
+        raise AssertionError(f"{what}: matched {d['matched']} of fdt's int8 rows, no more "
+                             f"than fdt's float rows match ({control}): no int8 effect")
+    return {**d, "float_matched": control}
+
+
+def _conv_work(x: torch.Tensor, conv, y: torch.Tensor) -> dict:
+    """A K4 call's GEMM (M, N, K), its operations and the bytes it must move
+    (xq read once, the weights, scales and bias once, y written once), and
+    K5's bytes on the same input (x read, q written)."""
+    b, _, ho, wo = y.shape
+    m, n = b * ho * wo, conv.out_channels
+    k = conv.kernel_size[0] * conv.kernel_size[1] * conv.in_channels // conv.groups
+    k4_bytes = (x.numel() + n * k + 4 * n + 4 + y.numel() * y.element_size()
+                + (0 if conv.bias is None else n * y.element_size()))
+    return {"m": m, "n": n, "k": k, "ops": 2 * m * n * k,
+            "k4_bytes": k4_bytes, "k5_bytes": x.numel() * (x.element_size() + 1) + 4}
+
+
+def _bound_ms(ops: float, peak_ops: float, nbytes: float) -> tuple[float, str]:
+    by_ops, by_bytes = ops / peak_ops * 1e3, nbytes / PEAK_BYTES_S * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+
+
+@torch.inference_mode()
+def int8_timings(det, staged, shapes: int = 3) -> list:
+    """K4 and K5 at the flagship's `shapes` heaviest int8 convs (2·M·N·K) of
+    one detect of `staged`, on the convs' own inputs: held to their plain
+    versions there (check_int8_conv; raises unless bit-equal), CUDA events over 20
+    calls beside the plain versions (3 calls), the bounds, torch._int_mm on
+    the same (M, N, K) GEMM of random int8 matrices (the im2col that a conv
+    through it needs is not counted) and cuDNN's bf16 conv of the same
+    shape, as context."""
+    import torch.nn.functional as F
+
+    from fdt_torch.ops import quant
+
+    work = {}
+
+    def measure(mod, inputs, out):
+        work[mod] = _conv_work(inputs[0], mod, out)
+
+    handles = [m.register_forward_hook(measure) for m in int8_convs_of(det.model)]
+    try:
+        det.detect_device(staged, 0.35, 0.35)
+    finally:
+        for h in handles:
+            h.remove()
+    heavy = sorted(work, key=lambda m: -work[m]["ops"])[:shapes]
+    kept = {}
+
+    def keep(mod, inputs, _out):
+        kept[mod] = inputs[0]
+
+    handles = [m.register_forward_hook(keep) for m in heavy]
+    try:
+        det.detect_device(staged, 0.35, 0.35)
+    finally:
+        for h in handles:
+            h.remove()
+    out = []
+    for mod in heavy:
+        x, w = kept[mod], work[mod]
+        k5_err, k4_err = check_int8_conv(mod, x)
+        if k5_err or k4_err:
+            raise AssertionError(f"{tuple(x.shape)}: K5 error {k5_err}, K4 error {k4_err}")
+        xq, sx = quant.quantize_int8(x)
+        wpack, sw = mod._int8
+        bias = None if mod.bias is None else mod.bias.to(x.dtype)
+        args = dict(kernel=mod.kernel_size, stride=mod.stride, padding=mod.padding,
+                    dilation=mod.dilation, groups=mod.groups, out_dtype=x.dtype,
+                    channels_last=quant.is_channels_last(x))
+        k4 = _cuda_ms(lambda: quant.conv_int8(xq, sx, wpack, sw, bias, **args), 20)
+        k5 = _cuda_ms(lambda: quant.quantize_int8(x), 20)
+        k4_plain = _cuda_ms(lambda: quant.conv_int8_plain(xq, sx, wpack, sw, bias, **args), 3)
+        k5_plain = _cuda_ms(lambda: quant.quantize_int8_plain(x), 3)
+        gen = torch.Generator(device=x.device).manual_seed(0)
+        a = torch.randint(-127, 128, (w["m"], w["k"]), dtype=torch.int8, device=x.device,
+                          generator=gen)
+        bt = torch.randint(-127, 128, (w["n"], w["k"]), dtype=torch.int8, device=x.device,
+                           generator=gen)
+        try:
+            torch._int_mm(a, bt.t())
+            int_mm = f"{_cuda_ms(lambda: torch._int_mm(a, bt.t()), 20):.4f}"
+        except RuntimeError as e:  # the library refuses the shape: print why
+            int_mm = "refused: " + str(e).splitlines()[0][:120]
+        weight = mod.weight.detach().to(x.dtype, memory_format=torch.channels_last)
+        cudnn = _cuda_ms(lambda: F.conv2d(x, weight, bias, mod.stride, mod.padding,
+                                          mod.dilation, mod.groups), 20)
+        k4_bound, k4_by = _bound_ms(w["ops"], PEAK_INT8_OPS_S, w["k4_bytes"])
+        k5_bound, k5_by = _bound_ms(0, PEAK_INT8_OPS_S, w["k5_bytes"])
+        out.append({"shape": f"{tuple(x.shape)}->{mod.out_channels}:{mod.kernel_size[0]}x"
+                             f"{mod.kernel_size[1]}/{mod.stride[0]}",
+                    "mnk": (w["m"], w["n"], w["k"]), "k4_err": k4_err, "k5_err": k5_err,
+                    "k4_ms": k4, "k4_plain_ms": k4_plain,
+                    "k4_bound_ms": k4_bound, "k4_bound_by": k4_by, "int_mm_ms": int_mm,
+                    "cudnn_bf16_ms": cudnn, "k5_ms": k5, "k5_plain_ms": k5_plain,
+                    "k5_bound_ms": k5_bound, "k5_bound_by": k5_by,
+                    "k4_tops": w["ops"] / k4 / 1e9})
+    return out
+
+
+def _int8_counts() -> tuple[int, int, int]:
+    from fdt_torch.ops import nms as nms_op, quant
+    return quant.launches.count, quant.quantize_launches.count, nms_op.launches.count
+
+
+def _reset_counts() -> None:
+    from fdt_torch.ops import nms as nms_op, quant
+    for counter in (quant.launches, quant.quantize_launches, nms_op.launches):
+        counter.reset()
+
+
+def phase_int8(device, det16):
+    """int8 inference (quant="int8": K5 quantizes each int8 conv's input, K4
+    runs the conv).  K5 and K4 bit-equal to their plain versions on
+    INT8_EDGES and on every int8 conv of the flagship (bf16 at the main
+    path's batch 8, 640², bf16 and float32 at a small batch), try1 (bf16,
+    its grouped 1×1s) and FaceBoxes (bf16) on the convs' own inputs; the
+    float32 int8 flagship on the golden frame against fdt's (INT8_GOLDEN,
+    check_int8_golden); the bf16 int8 flagship at batch 8, 640² (the main
+    path: 111 K4 and K5 launches, one for each int8 conv a forward runs,
+    and one K1) against the bf16 float flagship `det16` on the same frames,
+    with both detectors' images/s from this call; try1 and FaceBoxes once
+    each with int8; a _time_split of one int8 flagship call; K4 and K5
+    checked and timed at the three heaviest convs.  Returns the launches,
+    the timings and the largest K4 and K5 errors."""
+    from fdt_torch.infer import FaceBoxDetector, PyramidBoxDetector
+    from fdt_torch.models import FaceBox, from_jax_variables, load_pyramidbox
+
+    t0 = time.perf_counter()
+    for name in INT8_EDGES:
+        x, conv, _ = int8_edge_case(name, device)
+        e5, e4 = check_int8_conv(conv, x)
+        if e5 or e4:
+            raise AssertionError(f"int8 edge {name}: K5 error {e5}, K4 error {e4}")
+    model = load_pyramidbox(str(WEIGHTS))
+    det16q = PyramidBoxDetector(model, dtype=torch.bfloat16, device=device, quant="int8")
+    det32q = PyramidBoxDetector(model, device=device, quant="int8")
+    try1 = PyramidBoxDetector(load_pyramidbox(str(REPO / VARIANT_WEIGHTS["try1"]), "try1"),
+                              "try1", dtype=torch.bfloat16, device=device, quant="int8")
+    g = np.load(FACEBOX_GOLDEN)
+    fb_model = FaceBox()
+    fb_model.load_state_dict(from_jax_variables(
+        seeded_variables(fb_model, int(g["weights_seed"]))), strict=True)
+    facebox = FaceBoxDetector(fb_model, dtype=torch.bfloat16, device=device, quant="int8")
+    small = torch.from_numpy(np.random.RandomState(2).randint(
+        0, 256, (2, 160, 160, 3), dtype=np.uint8)).to(device)
+    fb_frame = torch.from_numpy(golden_frame(int(g["frame_seed"]), FACEBOX_SIZE,
+                                             FACEBOX_SIZE)[None]).to(device)
+    frames = flagship_batch()
+    staged = torch.from_numpy(frames).to(device)
+    checked = {
+        # the main path's own inputs: every int8 conv at batch 8, 640²
+        "flagship_main": check_int8_model(det16q.model,
+                                          lambda: det16q.detect_device(staged, 0.35, 0.35)),
+        "flagship_bf16": check_int8_model(det16q.model, lambda: det16q.detect_device(small)),
+        "flagship_f32": check_int8_model(det32q.model, lambda: det32q.detect_device(small)),
+        "try1_bf16": check_int8_model(try1.model, lambda: try1.detect_device(small)),
+        "facebox_bf16": check_int8_model(facebox.model, lambda: facebox.detect_device(fb_frame))}
+    bad = {k: v for k, v in checked.items() if v["k5_err"] or v["k4_err"]}
+    if bad:
+        raise AssertionError(f"K5 or K4 != plain on a model's own convs: {bad}")
+    _phase("int8_kernels", t0, edges=len(INT8_EDGES),
+           **{f"{k}_convs": v["convs"] for k, v in checked.items()},
+           **{f"{k}_geometries": v["geometries"] for k, v in checked.items()},
+           flagship_kxsxd=",".join("x".join(map(str, g)) for g in checked["flagship_bf16"]["kernels"]),
+           max_abs_err=max(max(v["k5_err"], v["k4_err"]) for v in checked.values()))
+
+    t0 = time.perf_counter()
+    gq = np.load(INT8_GOLDEN)
+    frame = golden_frame(int(gq["seed"]), int(gq["height"]), int(gq["width"]))
+    if hashlib.sha256(frame.tobytes()).hexdigest() != str(gq["frame_sha256"]):
+        raise AssertionError("the seeded frame differs from the int8 golden's")
+    with _tf32(True):  # the global flags on: the detector turns TF32 off itself
+        rows = det32q.detect_tensor(frame[None], float(gq["conf_thresh"]),
+                                    float(gq["nms_thresh"]))[0, 1]
+    min_matched = int8_min_matched(float(gq["fdt_float_matched"]))
+    golden = check_int8_golden(gq, rows, "int8 golden")
+    _phase("int8_golden", t0, count=int((rows[:, 0] > 0).sum()), golden_count=int(gq["count"]),
+           min_matched=f"{min_matched:.3f}", fdt_float_matched=f"{float(gq['fdt_float_matched']):.3f}",
+           **{k: f"{v:.4f}" for k, v in golden.items()},
+           scores_max_abs_diff=f"{_score_diff(rows, gq['rows']):.4f}")
+
+    t0 = time.perf_counter()
+    det16q.detect_device(staged, 0.35, 0.35)
+    torch.cuda.synchronize()
+    _reset_counts()
+    out = det16q.detect_tensor(frames, conf_thresh=0.35, nms_thresh=0.35)  # the main path
+    k4, k5, k1 = _int8_counts()
+    n_int8 = checked["flagship_bf16"]["convs"]  # the convs a forward runs
+    if out.shape != (BATCH, 2, 750, 5) or not np.isfinite(out).all():
+        raise AssertionError(f"bad int8 flagship output {out.shape}")
+    if k4 != n_int8 or k5 != n_int8 or k1 != 1:
+        raise AssertionError(f"int8 flagship path: {k4} K4, {k5} K5, {k1} K1 launches "
+                             f"(want {n_int8}, {n_int8}, 1)")
+    rates = {}
+    for name, det in (("int8", det16q), ("bf16", det16)):
+        _warm(lambda: det.detect_device(staged, 0.35, 0.35))
+        rates[name] = _rates(lambda: det.detect_device(staged, 0.35, 0.35), BATCH)
+    # int8 against float, the top rows of each image at conf 0.01, held to
+    # int8_bf16_limits: what fdt's own bf16 int8 detector shows against its
+    # bf16 float one on these frames (kept in the golden)
+    dense_q = det16q.detect_tensor(frames, conf_thresh=0.01, nms_thresh=0.35)
+    dense_f = det16.detect_tensor(frames, conf_thresh=0.01, nms_thresh=0.35)
+    if np.array_equal(dense_q, dense_f):  # the control a float path fails
+        raise AssertionError("bf16 int8 rows equal the bf16 float rows: no int8 effect")
+    drifts = [int8_drift(dense_f[i, 1], dense_q[i, 1]) for i in range(BATCH)]
+    mean_matched = float(np.mean([d["matched"] for d in drifts]))
+    limits = int8_bf16_limits(gq)
+    if (mean_matched < limits["matched"]
+            or min(d["median_iou"] for d in drifts) < limits["median_iou"]
+            or max(d["score_diff"] for d in drifts) > limits["score_diff"]):
+        raise AssertionError(f"bf16 int8 against bf16 float: {drifts} beyond {limits} "
+                             "(matched: the batch's mean)")
+    counts = [(out[:, 1, :, 0] > 0).sum(axis=1).tolist(),
+              (det16.detect_tensor(frames, 0.35, 0.35)[:, 1, :, 0] > 0).sum(axis=1).tolist()]
+    _phase("int8_flagship", t0, batch=BATCH, size=f"{SIZE}x{SIZE}",
+           int8_images_per_s=f"{max(rates['int8']):.2f}",
+           bf16_images_per_s=f"{max(rates['bf16']):.2f}",
+           rates={k: [round(r, 2) for r in v] for k, v in rates.items()},
+           k4_launches=k4, k5_launches=k5, k1_launches=k1, count_035_int8=counts[0],
+           count_035_bf16=counts[1],
+           matched=[round(d["matched"], 2) for d in drifts], mean_matched=f"{mean_matched:.3f}",
+           limits={k: round(v, 4) for k, v in limits.items()},
+           median_iou_min=f"{min(d['median_iou'] for d in drifts):.4f}",
+           score_diff_max=f"{max(d['score_diff'] for d in drifts):.4f}")
+
+    t0 = time.perf_counter()
+    launches = {"k4": k4, "k5": k5, "k1": k1}
+    fb_frames = torch.from_numpy(np.random.RandomState(3).randint(
+        0, 256, (FACEBOX_BATCH, FACEBOX_SIZE, FACEBOX_SIZE, 3), dtype=np.uint8)).to(device)
+    for name, run, want in (
+            ("try1", lambda: try1.detect_device(staged), checked["try1_bf16"]["convs"]),
+            ("facebox", lambda: facebox.detect_device(fb_frames)[0],
+             checked["facebox_bf16"]["convs"])):
+        run()
+        torch.cuda.synchronize()
+        _reset_counts()
+        got = run()
+        counts = _int8_counts()
+        if not bool(torch.isfinite(got).all()) or counts != (want, want, 1):
+            raise AssertionError(f"int8 {name}: finite {bool(torch.isfinite(got).all())}, "
+                                 f"K4/K5/K1 launches {counts} (want {want}, {want}, 1)")
+        for key, c in zip(("k4", "k5", "k1"), counts):
+            launches[key] += c
+        launches[f"{name}_convs"] = want
+    split = _time_split(lambda: det16q.detect_device(staged, 0.35, 0.35))
+    timed = int8_timings(det16q, staged)
+    for t in timed:
+        print("[int8] " + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+                                  for k, v in t.items()), flush=True)
+    print("[int8] split " + " ".join(f"{k}={v:.3f}" for k, v in sorted(split["parts"].items()))
+          + f" wall_ms={split['wall_ms']:.3f} device_ms={split['device_ms']:.3f}"
+          + f" idle_pct={split['idle_pct']:.1f}" if split["parts"] else "[int8] split: no device time")
+    _phase("int8_variants", t0, try1_convs=launches["try1_convs"],
+           facebox_convs=launches["facebox_convs"], timed_shapes=len(timed))
+    # the largest K4 and K5 differences from their plain versions, over every
+    # comparison of this phase (0, or it raised)
+    errors = {f"k{i}": max([v[f"k{i}_err"] for v in checked.values()]
+                           + [t[f"k{i}_err"] for t in timed]) for i in (4, 5)}
+    return launches, timed, errors
+
+
 # K3's kernels, both variants (and the one of a checkout from before them)
 K3_KERNELS = r"track_assoc_(?:smem_|global_)?kernel"
 # kernel name → part of a detect, first match wins (PyTorch's, cuDNN's and
 # cuBLAS's kernel names; K1's are nms_*_kernel)
 KERNEL_PARTS = (("k1", r"nms_\w+_kernel"), ("k3", K3_KERNELS),
+                ("k4", r"conv_int8_kernel"), ("k5", r"amax_kernel|quantize_\w*kernel"),
                 ("sort", r"[Ss]ort|[Rr]adix"),
                 ("conv_matmul", r"conv|cudnn|xmma|gemm|cutlass|implicit|winograd|fft"),
                 ("gather_index", r"[Gg]ather|[Ii]ndex|[Ss]catter"))
@@ -3184,6 +3673,7 @@ def main() -> int:
     det32, det16, launches, boxes_err = phase_flagship(device)
     facebox_det, k2_launches = phase_facebox(device)
     phase_variants(device)
+    int8_launches, int8_timed, int8_err = phase_int8(device, det16)
     mtcnn_launches, mtcnn_err = phase_mtcnn(device)
     track_k1_launches, track_k1_err, k3, k3_global = phase_tracking(device)
     phase_serving(det32, facebox_det)
@@ -3195,13 +3685,17 @@ def main() -> int:
     demo_launches = phase_video_demo(video_det, floor, facebox_det, device, frames)
 
     # PyTorch has no NMS call (and torchvision is not installed) and no
-    # greedy-association call: no library_ms
+    # greedy-association call: no library_ms.  K4 and K5 at the flagship's
+    # heaviest int8 conv
+    k4 = int8_timed[0]
+    k4_library = None if str(k4["int_mm_ms"]).startswith("refused") else float(k4["int_mm_ms"])
     print(json.dumps({"kernels": [{
         "name": "nms_tiled (K1)", "route": "cuda",
         "source": "fdt_torch/csrc/nms_tiled.cu",
         "replaces": "fdt/ops/pallas_nms.py:69",
-        "launches": (launches + mtcnn_launches + track_k1_launches + http_launches
-                     + eval_launches + host_launches + video_k1 + demo_launches),
+        "launches": (launches + int8_launches["k1"] + mtcnn_launches + track_k1_launches
+                     + http_launches + eval_launches + host_launches + video_k1
+                     + demo_launches),
         "max_abs_err": max(k1["max_abs_err"], boxes_err, mtcnn_err, track_k1_err,
                            video_k1_err),
         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
@@ -3229,7 +3723,23 @@ def main() -> int:
         "ms": k3_global["ms"], "plain_ms": k3_global["plain_ms"],
         "bound_ms": k3_global["bound_ms"], "bound_by": k3_global["bound_by"],
         "library_ms": None, "device_ms": k3_global["device_ms"],
-        "host_ms": k3_global["host_ms"]}]}))
+        "host_ms": k3_global["host_ms"]}, {
+        "name": "conv_int8 (K4)", "route": "cuda", "source": "fdt_torch/csrc/conv_int8.cu",
+        "replaces": "fdt/ops/quant.py:123",
+        "launches": int8_launches["k4"], "max_abs_err": int8_err["k4"],
+        "ms": k4["k4_ms"], "plain_ms": k4["k4_plain_ms"], "bound_ms": k4["k4_bound_ms"],
+        "bound_by": k4["k4_bound_by"], "shape": k4["shape"], "mnk": k4["mnk"],
+        # torch._int_mm (cuBLASLt) on the same (M, N, K) GEMM, its im2col not
+        # counted; cuDNN's bf16 conv of the same shape beside it as context
+        "library_ms": k4_library, "library": "torch._int_mm, im2col excluded",
+        "library_error": None if k4_library is not None else k4["int_mm_ms"],
+        "cudnn_bf16_ms": k4["cudnn_bf16_ms"]}, {
+        "name": "quantize_int8 (K5)", "route": "cuda", "source": "fdt_torch/csrc/quantize_int8.cu",
+        "replaces": "fdt/ops/quant.py:69",
+        "launches": int8_launches["k5"], "max_abs_err": int8_err["k5"],
+        "ms": k4["k5_ms"], "plain_ms": k4["k5_plain_ms"], "bound_ms": k4["k5_bound_ms"],
+        "bound_by": k4["k5_bound_by"], "shape": k4["shape"],
+        "library_ms": None}]}))  # no one PyTorch call computes amax and the quantization
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -6,9 +6,10 @@ card (counterpart of scripts/serve.py, with the same flags).
   curl -s -X POST --data-binary @face.png localhost:8000/detect
   curl -s localhost:8000/healthz
 
-Weights are variables npz files in fdt's format.  --quant and --dp_devices
-are accepted and refused: int8 inference and data-parallel serving are not
-ported yet.
+Weights are variables npz files in fdt's format.  `--quant int8` serves the
+pyramid or FaceBoxes family with int8 convolutions (kernels K5 and K4 on the
+card) and is refused for the mtcnn cascade, as in fdt.  --dp_devices is
+accepted and refused: data-parallel serving is not ported yet.
 """
 from __future__ import annotations
 
@@ -19,8 +20,6 @@ from fdt_torch.cli._common import add_device_flag
 
 def build_service(args):
     from fdt_torch.apps.serving import DetectionService
-    if args.quant:
-        raise SystemExit("--quant is not ported to fdt_torch yet (int8 inference)")
     if args.dp_devices:
         raise SystemExit("--dp_devices is not ported to fdt_torch yet "
                          "(data-parallel serving)")
@@ -30,14 +29,16 @@ def build_service(args):
     if args.detector == "pyramid":
         from fdt_torch.models.loader import load_pyramidbox_detector
         det = load_pyramidbox_detector(args.net, args.weights, budget=5000,
-                                       device=args.device)
+                                       device=args.device, quant=args.quant)
         return DetectionService("pyramidbox", det, **kw)
     if not args.weights:
         raise SystemExit(f"--weights is required for --detector {args.detector}")
     if args.detector == "facebox":
         from fdt_torch.models.loader import load_facebox_detector
         return DetectionService("facebox", load_facebox_detector(
-            args.weights, device=args.device), **kw)
+            args.weights, device=args.device, quant=args.quant), **kw)
+    if args.quant:
+        raise SystemExit("--quant is not supported for the mtcnn cascade")
     paths = args.weights.split(",")  # pnet,rnet,onet variables npz files
     if len(paths) != 3:
         raise SystemExit("--weights for mtcnn must be 'pnet.npz,rnet.npz,"
@@ -67,7 +68,7 @@ def main(argv=None):
     ap.add_argument("--max_batch", type=int, default=32)
     ap.add_argument("--max_wait_ms", type=float, default=5.0)
     ap.add_argument("--quant", default=None, choices=[None, "int8"],
-                    help="int8 inference (not ported yet: refused)")
+                    help="int8 inference (pyramid and facebox)")
     ap.add_argument("--dp_devices", default=0, type=int,
                     help="data-parallel serving (not ported yet: refused)")
     ap.add_argument("--no_warmup", action="store_true",

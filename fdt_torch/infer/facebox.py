@@ -9,9 +9,10 @@ so a call makes one NMS launch (kernel K1 on the card, by nms_padded's
 
 Two compute types, as PyramidBoxDetector: float32 and bfloat16 with
 channels_last; `precision` "highest" (the default, TF32 off for the forward)
-or "default" (TF32 allowed), as fdt's.
-fdt's stem_impl="s2d" is a TPU rearrangement of the same RDCL convs, so the
-port runs the direct convs; `quant` and `mesh` are not ported.
+or "default" (TF32 allowed), as fdt's; `quant="int8"`, fdt's int8 inference
+(every conv of reduction 32 or more, the 7×7 stem too, through kernels K5 and
+K4 on the card).  fdt's stem_impl="s2d" is a TPU rearrangement of the same
+RDCL convs, so the port runs the direct convs; `mesh` is not ported.
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ from fdt_torch.anchors import facebox_default_boxes
 from fdt_torch.config import FACEBOX, FaceBoxConfig
 from fdt_torch.geometry.boxes import decode
 from fdt_torch.geometry.nms import nms_padded
-from fdt_torch.infer.pyramidbox import _check_precision, _resolve_device, tf32_for
+from fdt_torch.infer.pyramidbox import _check_precision, _resolve_device, place_model, tf32_for
+from fdt_torch.ops.quant import check_mode
 
 
 class FaceBoxDetector:
@@ -38,14 +40,17 @@ class FaceBoxDetector:
       device: None → "cuda" (raises if absent); "cpu" for the CPU.
       precision: "highest" (TF32 off for the forward) or "default" (TF32
         allowed), as fdt's detector.
+      quant: None, or "int8" (the model passed in is not changed; see
+        fdt_torch.infer.pyramidbox.place_model).
     """
 
     def __init__(self, model, cfg: FaceBoxConfig = FACEBOX, budget: int = 2048,
                  out_k: int = 750, dtype: torch.dtype = torch.float32, device=None,
-                 precision: str = "highest"):
+                 precision: str = "highest", quant: str | None = None):
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
         self.precision = _check_precision(precision)
+        self.quant = check_mode(quant)
         self.cfg = cfg
         self.budget = budget
         self.out_k = out_k
@@ -53,8 +58,7 @@ class FaceBoxDetector:
         self.device = _resolve_device(device)
         self.memory_format = (torch.channels_last if dtype == torch.bfloat16
                               else torch.contiguous_format)
-        self.model = model.eval().to(self.device, dtype=dtype,
-                                     memory_format=self.memory_format)
+        self.model = place_model(model, self.device, dtype, self.memory_format, quant)
         self._default_boxes = torch.tensor(facebox_default_boxes(cfg), device=self.device)
 
     @torch.inference_mode()

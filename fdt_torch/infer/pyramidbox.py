@@ -7,7 +7,8 @@ host row walk that reproduces the reference's `while score >= threshold`
 semantics, including the [[0, 0, 0, 0, 0.4]] sentinel.
 
 Two compute types: float32 (for parity) and bfloat16 with channels_last, the
-bench mode.  `precision` is fdt's: "highest" (the default) turns TF32 off for
+bench mode; `quant="int8"` runs every conv of reduction 32 or more in int8
+(fdt_torch/ops/quant.py: kernels K5 and K4 on the card).  `precision` is fdt's: "highest" (the default) turns TF32 off for
 the forward, as fdt's precision="highest" keeps full float32; "default"
 allows it.  Priors are cached per (width, height), from the source shapes of the
 first forward at that size (exact for try4/try5 too, whose maps break the
@@ -18,6 +19,7 @@ hundreds of sizes.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 from collections import OrderedDict
 
@@ -28,6 +30,7 @@ import torch.nn.functional as F
 from fdt_torch.anchors import pyramid_face_priors
 from fdt_torch.config import DetectConfig, PIXEL_MEAN_BGR, PYRAMID_CONFIGS, PyramidConfig
 from fdt_torch.infer.detect import ssd_detect
+from fdt_torch.ops.quant import check_mode, int8_convs
 
 
 def detections_to_rows(det: np.ndarray, threshold: float, scale,
@@ -76,6 +79,26 @@ def tf32_for(precision: str):
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
 
 
+def place_model(model, device: torch.device, dtype: torch.dtype, memory_format,
+                quant: str | None = None):
+    """`model` in eval mode on `device`, in `dtype` and `memory_format`.
+
+    quant=None moves the model passed in, in place.  quant="int8" moves a
+    copy whose convs int8_convs swapped (fdt_torch.ops.quant), quantized from
+    the copy's float32 weights before the cast, as fdt quantizes its float32
+    params whatever the compute dtype; the model passed in, and a float
+    detector holding it, are unchanged.  Raises ValueError if the model's
+    weights are no longer float32 (a bf16 detector cast it in place).
+    """
+    if check_mode(quant) is None:
+        return model.eval().to(device, dtype=dtype, memory_format=memory_format)
+    if any(p.dtype != torch.float32 for p in model.parameters()):
+        raise ValueError("quant='int8' quantizes float32 weights; this model was cast "
+                         "(build the int8 detector first, or from a fresh model)")
+    qmodel = int8_convs(copy.deepcopy(model)).eval()
+    return qmodel.to(device, dtype=dtype, memory_format=memory_format)
+
+
 def _resolve_device(device) -> torch.device:
     """`None` means the CUDA card; raise if there is none."""
     device = torch.device("cuda" if device is None else device)
@@ -100,6 +123,8 @@ class PyramidBoxDetector:
       device: None → "cuda" (raises if absent); "cpu" for the CPU.
       precision: "highest" (TF32 off for the forward) or "default" (TF32
         allowed), as fdt's detector.
+      quant: None, or "int8" for fdt's post-training int8 inference
+        (place_model; the model passed in is not changed).
 
     `source_shapes[(width, height)]` holds the (f_width, f_height) of every
     source map, recorded at the first forward at that size, for the sizes the
@@ -109,10 +134,11 @@ class PyramidBoxDetector:
     def __init__(self, model, cfg: PyramidConfig | str = "repo",
                  detect_cfg: DetectConfig | None = None, budget: int = 5000,
                  dtype: torch.dtype = torch.float32, device=None,
-                 precision: str = "highest"):
+                 precision: str = "highest", quant: str | None = None):
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
         self.precision = _check_precision(precision)
+        self.quant = check_mode(quant)
         self.cfg = PYRAMID_CONFIGS[cfg] if isinstance(cfg, str) else cfg
         self.detect_cfg = detect_cfg or self.cfg.detect
         self.budget = budget
@@ -120,8 +146,7 @@ class PyramidBoxDetector:
         self.device = _resolve_device(device)
         self.memory_format = (torch.channels_last if dtype == torch.bfloat16
                               else torch.contiguous_format)
-        self.model = model.eval().to(self.device, dtype=dtype,
-                                     memory_format=self.memory_format)
+        self.model = place_model(model, self.device, dtype, self.memory_format, quant)
         self._mean = torch.tensor(PIXEL_MEAN_BGR, dtype=torch.float32,
                                   device=self.device)
         # (width, height) → (source shapes, priors on the device), least

@@ -12,8 +12,14 @@ from torch import nn
 
 def conv(cin: int, cout: int, kernel: int, stride: int = 1, padding: int = 0,
          *, bias: bool = True, dilation: int = 1, groups: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, kernel, stride, padding, dilation=dilation,
-                     groups=groups, bias=bias)
+    """nn.Conv2d; inside `fdt_torch.ops.quant.quantized("int8")` (read when
+    the model is built) passed through int8_convs, so an eligible conv is an
+    Int8Conv2d with the same parameters, as fdt's conv() builds Int8Conv
+    inside its trace-time switch."""
+    from fdt_torch.ops.quant import int8_convs, quant_mode
+    c = nn.Conv2d(cin, cout, kernel, stride, padding, dilation=dilation, groups=groups,
+                  bias=bias)
+    return int8_convs(c) if quant_mode() == "int8" else c
 
 
 def batch_norm(features: int) -> nn.BatchNorm2d:

@@ -110,7 +110,8 @@ def load_pyramidbox(path: str, variant: str = "repo") -> nn.Module:
 def load_pyramidbox_detector(variant: str, weights: str | None, **kw):
     """A PyramidBoxDetector for any variant; torch's default initialisation
     when `weights` is None (fdt's is flax's).  **kw go to the detector
-    (detect_cfg=, budget=, dtype=, device=, precision=)."""
+    (detect_cfg=, budget=, dtype=, device=, precision=, quant=); with
+    quant="int8" the convs are quantized from the loaded float32 weights."""
     from fdt_torch.infer.pyramidbox import PyramidBoxDetector
     model = (load_pyramidbox(weights, variant) if weights
              else build_pyramidbox(variant).eval())
@@ -119,7 +120,9 @@ def load_pyramidbox_detector(variant: str, weights: str | None, **kw):
 
 def load_facebox_detector(weights: str, **kw):
     """A FaceBoxDetector with the weights of a variables npz, loaded strict.
-    **kw go to the detector."""
+    **kw go to the detector (budget=, out_k=, dtype=, device=, precision=,
+    quant=); with quant="int8" the convs are quantized from the loaded
+    float32 weights."""
     from fdt_torch.infer.facebox import FaceBoxDetector
     return FaceBoxDetector(_load_strict(FaceBox(), weights), **kw)
 

@@ -28,7 +28,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # C functions of the library: name → argument types (every one returns int:
 # a CUDA error code, or the count its name says)
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 SIGNATURES = {
     # boxes, valid, seg, scratch, keep, p, n, thresh, minimum_mode, out_k, stream
     "fdt_nms_tiled": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
@@ -52,6 +52,13 @@ SIGNATURES = {
     # t, n → rows a tile fdt_track_associate takes (0: the device-memory
     # variant; < 0: CUDA error)
     "fdt_track_rows": [_I, _I],
+    # x, q, scale, partials; is_bf16, b, c, h, w, x's strides (b, c, h, w), stream
+    "fdt_quantize_int8": [_P] * 4 + [_I] * 9 + [_P],
+    # elements → words of the partials buffer fdt_quantize_int8 takes
+    "fdt_quantize_int8_partials": [_I],
+    # x, sx, wpack, sw, bias, out; b, h, w, c, ho, wo, kh, kw, sh, sw, ph, pw,
+    # dh, dw, groups, n, ngp, kp; out's strides (b, c, h, w); out_bf16, stream
+    "fdt_conv_int8": [_P] * 6 + [_I] * 18 + [_L] * 4 + [_I, _P],
 }
 # C functions that return another type than int
 RESTYPES = {

@@ -461,3 +461,68 @@ def test_mtcnn_host_cascade_on_card(card):
     out = chip_smoke.check_mtcnn_host_golden(chip_smoke.host_cascade(card),
                                              chip_smoke.mtcnn_host_frames())
     assert max(out["unmatched"]) <= chip_smoke.MTCNN_HOST_COUNT_DIFF
+
+
+@pytest.mark.parametrize("name", chip_smoke.INT8_EDGES)
+def test_int8_kernels_bit_equal_to_plain_at_their_edges(card, name):
+    """K5 and K4 on chip_smoke.INT8_EDGES (K = 147, N = 2 and 4, grouped,
+    dilated, the zero tensor, NaN and inf, bf16 and float32, NCHW and
+    channels-last) against their plain versions on the card, one launch of
+    each wrapper."""
+    from fdt_torch.ops import quant
+
+    x, conv, _ = chip_smoke.int8_edge_case(name, card)
+    before = quant.launches.count, quant.quantize_launches.count
+    assert chip_smoke.check_int8_conv(conv, x) == (0.0, 0.0)
+    assert (quant.launches.count, quant.quantize_launches.count) == (before[0] + 1,
+                                                                     before[1] + 1)
+
+
+def test_int8_flagship_convs_bit_equal_to_plain_on_their_inputs(card):
+    """Every int8 conv that a bf16 int8 flagship detect runs (111: the
+    head-supervision convs never run), K5 and K4 on the conv's own input
+    against their plain versions."""
+    from fdt_torch.infer import PyramidBoxDetector
+    from fdt_torch.models import load_pyramidbox
+
+    det = PyramidBoxDetector(load_pyramidbox(str(chip_smoke.WEIGHTS)), dtype=torch.bfloat16,
+                             device=card, quant="int8")
+    frames = torch.from_numpy(np.random.RandomState(2).randint(
+        0, 256, (2, 128, 128, 3), dtype=np.uint8)).to(card)
+    out = chip_smoke.check_int8_model(det.model, lambda: det.detect_device(frames))
+    assert out["convs"] == 111 and out["k5_err"] == out["k4_err"] == 0.0
+    assert out["kernels"] == [(1, 1, 1), (1, 2, 1), (3, 1, 1), (3, 1, 2), (3, 2, 1), (7, 2, 1)]
+
+
+def test_int8_wrappers_raise_and_never_fall_back_on_card(card, monkeypatch):
+    """A CUDA tensor the kernels do not take raises, and a failed launch
+    raises: neither gives way to the plain version."""
+    from fdt_torch.ops import _build, quant
+
+    x = torch.randn(1, 8, 6, 6, device=card)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        quant.quantize_int8(x.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        quant.quantize_int8(x[:, :, ::2])
+    conv = quant.Int8Conv2d(8, 4, 3, padding=1).to(card)
+    conv.quantize_weights()
+    xq, sx = quant.quantize_int8(x)
+    wpack, sw = conv._int8
+    args = dict(kernel=(3, 3), stride=(1, 1), padding=(1, 1), dilation=(1, 1), groups=1,
+                out_dtype=torch.float32, channels_last=False)
+    with pytest.raises(ValueError, match="must be on"):
+        quant.conv_int8(xq, sx.cpu(), wpack, sw, None, **args)
+    with pytest.raises(ValueError, match="int8"):
+        quant.conv_int8(xq.float(), sx, wpack, sw, None, **args)
+    with pytest.raises(ValueError, match="contiguous"):
+        quant.conv_int8(xq.transpose(1, 2), sx, wpack, sw, None, **args)
+
+    class Failing:
+        def __getattr__(self, name):
+            return lambda *a: 1 if name in ("fdt_conv_int8", "fdt_quantize_int8") else 4
+
+    monkeypatch.setattr(_build, "library", lambda: Failing())
+    with pytest.raises(RuntimeError, match="fdt_quantize_int8 launch failed"):
+        quant.quantize_int8(x)
+    with pytest.raises(RuntimeError, match="fdt_conv_int8 launch failed"):
+        quant.conv_int8(xq, sx, wpack, sw, None, **args)

@@ -395,10 +395,15 @@ def test_cli_help(name):
     assert r.returncode == 0 and "usage" in r.stdout, r.stderr[-2000:]
 
 
-@pytest.mark.parametrize("flag", [["--quant", "int8"], ["--dp_devices", "2"]])
+@pytest.mark.parametrize("flag", [
+    ["--quant", "int8", "--detector", "mtcnn", "--weights", "p.npz,r.npz,o.npz"],
+    ["--dp_devices", "2"]])
 def test_serve_cli_refuses_what_is_not_ported(flag):
+    """--dp_devices is not ported; --quant int8 is (pyramid and facebox, in
+    tests/test_torch_quant_detectors.py) and, as in fdt, refused for the
+    mtcnn cascade."""
     from fdt_torch.cli import serve
-    with pytest.raises(SystemExit, match="not ported"):
+    with pytest.raises(SystemExit, match="not ported|not supported for the mtcnn"):
         serve.main(flag + ["--device", "cpu", "--no_warmup"])
 
 
