@@ -38,20 +38,22 @@ Phases, each printing one line with its seconds:
                against the JAX goldens, then bf16 images/s at batch 8, 640²;
                try2, try4 and try5 on seeded weights: a detect call whose
                source shapes are those fdt recorded.
-  7. int8   — int8 inference (quant="int8"): K5 (the activation quantizer)
-               and K4 (the int8 convolution) bit-equal to their plain
-               versions on INT8_EDGES and on every int8 conv of the
+  7. int8   — int8 inference (quant="int8"): K5 (the activation quantizer,
+               one launch) and K4 (the int8 convolution, its wgmma and
+               mma_sync variants) bit-equal to their plain versions on
+               INT8_EDGES, INT8_TILE_EDGES and on every int8 conv of the
                flagship (at the main path's batch 8, 640² too), try1 and
                FaceBoxes on the convs' own inputs; the float32 int8
                flagship on the golden frame against fdt's int8 golden
                (INT8_GOLDEN), with a control that a float path fails; the
-               bf16 int8 flagship at batch 8, 640² (111 K4 and K5
-               launches, one K1) against the bf16 float flagship on the
-               same frames, images/s of both; try1 and
-               FaceBoxes once with int8; a profiler split of one int8 call;
-               K4 and K5 timed at the three heaviest convs beside the plain
-               versions, the bounds, torch._int_mm on the same GEMM and
-               cuDNN's bf16 conv.
+               bf16 int8 flagship at batch 8, 640² (111 K4 launches, each of
+               the variant picked, 110 wgmma; 111 K5, one K1) against the
+               bf16 float flagship on the same frames, images/s of both;
+               try1 and FaceBoxes once with int8; a profiler split of one
+               int8 call (K4 by variant); K4 and K5 timed at the three
+               heaviest convs and the stem beside the plain versions, the
+               bounds (and their sums over a batch), torch._int_mm on the
+               same GEMM and cuDNN's bf16 conv.
   8. mtcnn  — the MTCNN cascade at bench.py's configuration (480×640, batch
                32, the ladder FAST → MID → full) on seeded weights: the
                "sparse" golden batch against fdt's (counts, flags and tier
@@ -140,8 +142,9 @@ GOLDEN_DIR = REPO / "fdt_torch" / "golden"
 GOLDEN = GOLDEN_DIR / "flagship_f32.npz"
 # a hang must exit with a traceback before whoever runs this script kills
 # it, so this stays well under any time limit it is run with (the whole run
-# takes about two minutes on an H100, the nvcc build included)
-HANG_LIMIT_S = 240
+# takes three to four minutes on an H100, the nvcc build and its one-nvcc
+# reference included)
+HANG_LIMIT_S = 420
 WARMUP_S = 2.0  # before each throughput measurement
 SIZE, BATCH = 640, 8  # the flagship: bench.py:167-200
 
@@ -279,6 +282,26 @@ INT8_EDGES = {
     # take several turns
     "past-caps-bf16-cl": (8, 64, 96, 96, 32, 3, 1, 1, 1, 1, "bfloat16", True, True, None),
     "past-caps-f32-nchw": (8, 64, 96, 96, 32, 3, 1, 1, 1, 1, "float32", False, True, None),
+}
+# Edges of K4's wgmma variant and K5's grid (the same fields): N tiles of 8,
+# 64, 128 and 256 with ragged N (24, 72, 320: two tiles) and M (143 rows),
+# K past its last 64-byte stage (144), stride 2 with a 5×5 window, dilation
+# 3, float32 outputs through strides, more tiles than the card has SMs (the
+# persistent walk: 300 and 600), and more 16-byte chunks than one turn of
+# K5's resident grid (10.24M elements)
+INT8_TILE_EDGES = {
+    "n8-bf16-cl": (2, 64, 9, 11, 8, 3, 1, 1, 1, 1, "bfloat16", True, True, None),
+    "n24-k144-bf16-cl": (2, 16, 12, 10, 24, 3, 1, 1, 1, 1, "bfloat16", True, True, None),
+    "n72-k5-s2-bf16-cl": (3, 48, 15, 13, 72, 5, 2, 2, 1, 1, "bfloat16", True, False, None),
+    "n320-1x1-bf16-cl": (2, 512, 7, 9, 320, 1, 1, 0, 1, 1, "bfloat16", True, True, None),
+    "n256-m143-f32-nchw": (1, 64, 13, 11, 256, 3, 1, 1, 1, 1, "float32", False, True, None),
+    "n512-dil3-bf16-cl": (1, 128, 20, 20, 512, 3, 1, 3, 3, 1, "bfloat16", True, True, None),
+    "n4-f32-cl": (2, 256, 6, 6, 4, 3, 1, 1, 1, 1, "float32", True, True, None),
+    "persistent-bf16-cl": (4, 32, 96, 100, 64, 1, 1, 0, 1, 1, "bfloat16", True, True, None),
+    "persistent-n512-bf16-cl": (4, 32, 96, 100, 512, 1, 1, 0, 1, 1, "bfloat16", True, False,
+                                None),
+    "k5-turns-bf16-cl": (8, 128, 100, 100, 8, 1, 1, 0, 1, 1, "bfloat16", True, True, None),
+    "k5-turns-f32-nchw": (8, 128, 100, 100, 8, 1, 1, 0, 1, 1, "float32", False, True, None),
 }
 
 # The video paths: frames of the tracking phase's pan written as PNGs and
@@ -1582,12 +1605,13 @@ def _mtcnn_main_path(name, cascade, staged) -> dict:
 
 
 def int8_edge_case(name: str, device="cpu"):
-    """INT8_EDGES[name] → (x [B,C,H,W], an Int8Conv2d of seeded weights
-    quantized and cast to x's dtype, both on `device`, whether x is
-    channels-last)."""
+    """INT8_EDGES[name] or INT8_TILE_EDGES[name] → (x [B,C,H,W], an
+    Int8Conv2d of seeded weights quantized and cast to x's dtype, both on
+    `device`, whether x is channels-last)."""
     from fdt_torch.ops.quant import Int8Conv2d
 
-    b, cin, h, w, cout, k, s, p, d, groups, dtype, cl, bias, fill = INT8_EDGES[name]
+    b, cin, h, w, cout, k, s, p, d, groups, dtype, cl, bias, fill = (
+        INT8_EDGES.get(name) or INT8_TILE_EDGES[name])
     rng = np.random.RandomState(sum(map(ord, name)))
     x = rng.randn(b, cin, h, w).astype(np.float32) * 3
     if fill == "zero":
@@ -1765,20 +1789,67 @@ def _bound_ms(ops: float, peak_ops: float, nbytes: float) -> tuple[float, str]:
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
 
 
+def int8_conv_class(conv) -> str:
+    """The class of an int8 conv of the flagship: "stem" (input channels a
+    group not a multiple of 16: the 7×7 / 2 over 3 channels), "head" (8
+    outputs or fewer), "1x1", or "wide kxk"."""
+    if conv.in_channels // conv.groups % 16:
+        return "stem"
+    if conv.out_channels <= 8:
+        return "head"
+    return "1x1" if tuple(conv.kernel_size) == (1, 1) else "wide kxk"
+
+
+def int8_variant(conv) -> str:
+    """The K4 variant the wrapper picks for conv on K5's output (16-byte
+    aligned); "mma_sync" in a checkout from before the variants, which has
+    only that kernel."""
+    from fdt_torch.ops import quant
+
+    pick = getattr(quant, "conv_variant", None)
+    return pick(conv.in_channels, conv.groups, 0) if pick else "mma_sync"
+
+
+def int8_heaviest(work: dict, shapes: int = 3) -> list:
+    """The `shapes` heaviest convs (2·M·N·K) of `work`, then the first conv
+    of each other K4 variant (the flagship's stem), so that every variant
+    is timed."""
+    heavy = sorted(work, key=lambda m: -work[m]["ops"])[:shapes]
+    variants = {int8_variant(m) for m in heavy}
+    for mod in work:
+        if int8_variant(mod) not in variants:
+            variants.add(int8_variant(mod))
+            heavy.append(mod)
+    return heavy
+
+
+# K4's and K5's kernels (either variant of K4; K5's one-launch kernel, or the
+# two of a checkout from before it) in a profiler trace
+K4_KERNELS, K5_KERNELS = r"conv_int8_\w*kernel", r"amax_kernel|quantize_\w*kernel"
+
+
 @torch.inference_mode()
-def int8_timings(det, staged, shapes: int = 3) -> list:
-    """K4 and K5 at the flagship's `shapes` heaviest int8 convs (2·M·N·K) of
-    one detect of `staged`, on the convs' own inputs: held to their plain
-    versions there (check_int8_conv; raises unless bit-equal), CUDA events over 20
-    calls beside the plain versions (3 calls), the bounds, torch._int_mm on
-    the same (M, N, K) GEMM of random int8 matrices (the im2col that a conv
+def int8_timings(det, staged, select=int8_heaviest, plain: bool = True,
+                 cudnn: bool = True) -> tuple[list, dict]:
+    """K4 and K5 on the int8 convs of one detect of `staged` that
+    `select(work)` picks (work: conv → _conv_work, in forward order), on the
+    convs' own inputs: held to their plain versions there (check_int8_conv;
+    raises unless bit-equal), CUDA events over 20 calls, the profiler's
+    device time a call (5 calls) and the host time a call of K4's and K5's
+    wrappers and of the conv module's forward (20 calls enqueued without a
+    wait), beside the plain versions (3
+    calls; plain=True), the bounds, torch._int_mm on the
+    same (M, N, K) GEMM of random int8 matrices (the im2col that a conv
     through it needs is not counted) and cuDNN's bf16 conv of the same
-    shape, as context."""
+    shape (cudnn=True), as context.  Returns (a dict a timed conv, in
+    select's order; the sums over every int8 conv of the detect: the K4
+    bound by variant, the operations-only K4 bound, the K5 bound)."""
     import torch.nn.functional as F
 
     from fdt_torch.ops import quant
 
-    work = {}
+    work, kept = {}, {}
+    chosen = set()
 
     def measure(mod, inputs, out):
         work[mod] = _conv_work(inputs[0], mod, out)
@@ -1789,21 +1860,30 @@ def int8_timings(det, staged, shapes: int = 3) -> list:
     finally:
         for h in handles:
             h.remove()
-    heavy = sorted(work, key=lambda m: -work[m]["ops"])[:shapes]
-    kept = {}
+    timed = select(work)
+    chosen.update(timed)
 
     def keep(mod, inputs, _out):
-        kept[mod] = inputs[0]
+        if mod in chosen:
+            kept[mod] = inputs[0]
 
-    handles = [m.register_forward_hook(keep) for m in heavy]
+    handles = [m.register_forward_hook(keep) for m in timed]
     try:
         det.detect_device(staged, 0.35, 0.35)
     finally:
         for h in handles:
             h.remove()
+    sums = {"k4_bound_ms": {}, "k4_ops_bound_ms": 0.0, "k5_bound_ms": 0.0, "convs": {}}
+    for mod, w in work.items():
+        variant = int8_variant(mod)
+        bound = _bound_ms(w["ops"], PEAK_INT8_OPS_S, w["k4_bytes"])[0]
+        sums["k4_bound_ms"][variant] = sums["k4_bound_ms"].get(variant, 0.0) + bound
+        sums["convs"][variant] = sums["convs"].get(variant, 0) + 1
+        sums["k4_ops_bound_ms"] += w["ops"] / PEAK_INT8_OPS_S * 1e3
+        sums["k5_bound_ms"] += _bound_ms(0, PEAK_INT8_OPS_S, w["k5_bytes"])[0]
     out = []
-    for mod in heavy:
-        x, w = kept[mod], work[mod]
+    for mod in timed:
+        x, w = kept.pop(mod), work[mod]
         k5_err, k4_err = check_int8_conv(mod, x)
         if k5_err or k4_err:
             raise AssertionError(f"{tuple(x.shape)}: K5 error {k5_err}, K4 error {k4_err}")
@@ -1815,8 +1895,20 @@ def int8_timings(det, staged, shapes: int = 3) -> list:
                     channels_last=quant.is_channels_last(x))
         k4 = _cuda_ms(lambda: quant.conv_int8(xq, sx, wpack, sw, bias, **args), 20)
         k5 = _cuda_ms(lambda: quant.quantize_int8(x), 20)
-        k4_plain = _cuda_ms(lambda: quant.conv_int8_plain(xq, sx, wpack, sw, bias, **args), 3)
-        k5_plain = _cuda_ms(lambda: quant.quantize_int8_plain(x), 3)
+        device, host = {}, {}
+        for key, fn, pattern in (
+                ("k4", lambda: quant.conv_int8(xq, sx, wpack, sw, bias, **args), K4_KERNELS),
+                ("k5", lambda: quant.quantize_int8(x), K5_KERNELS),
+                ("forward", lambda: mod(x), None)):
+            if pattern:
+                split, _ = _device_split(fn, 5, pattern)
+                device[key] = sum(e["us"] for e in split.values()) / 1e3 if split else None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                fn()
+            host[key] = (time.perf_counter() - t0) / 20 * 1e3
+            torch.cuda.synchronize()
         gen = torch.Generator(device=x.device).manual_seed(0)
         a = torch.randint(-127, 128, (w["m"], w["k"]), dtype=torch.int8, device=x.device,
                           generator=gen)
@@ -1827,52 +1919,93 @@ def int8_timings(det, staged, shapes: int = 3) -> list:
             int_mm = f"{_cuda_ms(lambda: torch._int_mm(a, bt.t()), 20):.4f}"
         except RuntimeError as e:  # the library refuses the shape: print why
             int_mm = "refused: " + str(e).splitlines()[0][:120]
-        weight = mod.weight.detach().to(x.dtype, memory_format=torch.channels_last)
-        cudnn = _cuda_ms(lambda: F.conv2d(x, weight, bias, mod.stride, mod.padding,
-                                          mod.dilation, mod.groups), 20)
+        del a, bt
         k4_bound, k4_by = _bound_ms(w["ops"], PEAK_INT8_OPS_S, w["k4_bytes"])
         k5_bound, k5_by = _bound_ms(0, PEAK_INT8_OPS_S, w["k5_bytes"])
-        out.append({"shape": f"{tuple(x.shape)}->{mod.out_channels}:{mod.kernel_size[0]}x"
-                             f"{mod.kernel_size[1]}/{mod.stride[0]}",
-                    "mnk": (w["m"], w["n"], w["k"]), "k4_err": k4_err, "k5_err": k5_err,
-                    "k4_ms": k4, "k4_plain_ms": k4_plain,
-                    "k4_bound_ms": k4_bound, "k4_bound_by": k4_by, "int_mm_ms": int_mm,
-                    "cudnn_bf16_ms": cudnn, "k5_ms": k5, "k5_plain_ms": k5_plain,
-                    "k5_bound_ms": k5_bound, "k5_bound_by": k5_by,
-                    "k4_tops": w["ops"] / k4 / 1e9})
-    return out
+        line = {"shape": f"{tuple(x.shape)}->{mod.out_channels}:{mod.kernel_size[0]}x"
+                         f"{mod.kernel_size[1]}/{mod.stride[0]}",
+                "class": int8_conv_class(mod), "variant": int8_variant(mod),
+                "mnk": (w["m"], w["n"], w["k"]), "k4_err": k4_err, "k5_err": k5_err,
+                "k4_ms": k4, "k4_device_ms": device["k4"], "k4_host_ms": host["k4"],
+                "k4_bound_ms": k4_bound, "k4_bound_by": k4_by, "int_mm_ms": int_mm, "k5_ms": k5,
+                "k5_device_ms": device["k5"], "k5_host_ms": host["k5"],
+                "forward_host_ms": host["forward"], "k5_bound_ms": k5_bound,
+                "k5_bound_by": k5_by, "k4_tops": w["ops"] / k4 / 1e9}
+        if plain:
+            line["k4_plain_ms"] = _cuda_ms(
+                lambda: quant.conv_int8_plain(xq, sx, wpack, sw, bias, **args), 3)
+            line["k5_plain_ms"] = _cuda_ms(lambda: quant.quantize_int8_plain(x), 3)
+        if cudnn:
+            weight = mod.weight.detach().to(x.dtype, memory_format=torch.channels_last)
+            line["cudnn_bf16_ms"] = _cuda_ms(lambda: F.conv2d(
+                x, weight, bias, mod.stride, mod.padding, mod.dilation, mod.groups), 20)
+        out.append(line)
+        del x, xq
+    return out, sums
 
 
 def _int8_counts() -> tuple[int, int, int]:
+    """(K4 launches of both variants, K5's, K1's)."""
+    k4 = _k4_counts()
     from fdt_torch.ops import nms as nms_op, quant
-    return quant.launches.count, quant.quantize_launches.count, nms_op.launches.count
+    return k4["wgmma"] + k4["mma_sync"], quant.quantize_launches.count, nms_op.launches.count
+
+
+def _k4_counts() -> dict:
+    """K4's launches by variant."""
+    from fdt_torch.ops import quant
+    return {"wgmma": quant.launches.count, "mma_sync": quant.mma_sync_launches.count}
 
 
 def _reset_counts() -> None:
     from fdt_torch.ops import nms as nms_op, quant
-    for counter in (quant.launches, quant.quantize_launches, nms_op.launches):
+    for counter in (quant.launches, quant.mma_sync_launches, quant.quantize_launches,
+                    nms_op.launches):
         counter.reset()
+
+
+def k4_picks(model, run) -> dict:
+    """run() through `model`: the K4 variant conv_variant names for each int8
+    conv's input (quantize_int8's q), counted by variant."""
+    from fdt_torch.ops import quant
+
+    picks = {}
+
+    def hook(mod, inputs, _out):
+        v = quant.conv_variant(inputs[0].shape[1], mod.groups, 0)
+        picks[v] = picks.get(v, 0) + 1
+
+    handles = [m.register_forward_hook(hook) for m in int8_convs_of(model)]
+    try:
+        run()
+    finally:
+        for h in handles:
+            h.remove()
+    return picks
 
 
 def phase_int8(device, det16):
     """int8 inference (quant="int8": K5 quantizes each int8 conv's input, K4
     runs the conv).  K5 and K4 bit-equal to their plain versions on
-    INT8_EDGES and on every int8 conv of the flagship (bf16 at the main
-    path's batch 8, 640², bf16 and float32 at a small batch), try1 (bf16,
-    its grouped 1×1s) and FaceBoxes (bf16) on the convs' own inputs; the
-    float32 int8 flagship on the golden frame against fdt's (INT8_GOLDEN,
-    check_int8_golden); the bf16 int8 flagship at batch 8, 640² (the main
-    path: 111 K4 and K5 launches, one for each int8 conv a forward runs,
-    and one K1) against the bf16 float flagship `det16` on the same frames,
-    with both detectors' images/s from this call; try1 and FaceBoxes once
-    each with int8; a _time_split of one int8 flagship call; K4 and K5
-    checked and timed at the three heaviest convs.  Returns the launches,
-    the timings and the largest K4 and K5 errors."""
+    INT8_EDGES, INT8_TILE_EDGES and on every int8 conv of the flagship (bf16
+    at the main path's batch 8, 640², bf16 and float32 at a small batch),
+    try1 (bf16, its grouped 1×1s) and FaceBoxes (bf16) on the convs' own
+    inputs; the float32 int8 flagship on the golden frame against fdt's
+    (INT8_GOLDEN, check_int8_golden); the bf16 int8 flagship at batch 8,
+    640² (the main path: 111 K4 launches, each of the variant conv_variant
+    picks, at least 108 of them wgmma, 111 K5 launches and one K1) against
+    the bf16 float flagship `det16` on the same frames, with both
+    detectors' images/s from this call; try1 and FaceBoxes once each with
+    int8, K4's launches by variant as picked; a _time_split of one int8
+    flagship call (K4 by variant); K4 and K5 checked and timed at the three
+    heaviest convs and the stem (the mma_sync variant).  Returns the
+    launches (K4's by variant), the timings, the sums of the bounds over a
+    batch and the largest K4 and K5 errors."""
     from fdt_torch.infer import FaceBoxDetector, PyramidBoxDetector
     from fdt_torch.models import FaceBox, from_jax_variables, load_pyramidbox
 
     t0 = time.perf_counter()
-    for name in INT8_EDGES:
+    for name in [*INT8_EDGES, *INT8_TILE_EDGES]:
         x, conv, _ = int8_edge_case(name, device)
         e5, e4 = check_int8_conv(conv, x)
         if e5 or e4:
@@ -1904,7 +2037,7 @@ def phase_int8(device, det16):
     bad = {k: v for k, v in checked.items() if v["k5_err"] or v["k4_err"]}
     if bad:
         raise AssertionError(f"K5 or K4 != plain on a model's own convs: {bad}")
-    _phase("int8_kernels", t0, edges=len(INT8_EDGES),
+    _phase("int8_kernels", t0, edges=len(INT8_EDGES) + len(INT8_TILE_EDGES),
            **{f"{k}_convs": v["convs"] for k, v in checked.items()},
            **{f"{k}_geometries": v["geometries"] for k, v in checked.items()},
            flagship_kxsxd=",".join("x".join(map(str, g)) for g in checked["flagship_bf16"]["kernels"]),
@@ -1926,17 +2059,20 @@ def phase_int8(device, det16):
            scores_max_abs_diff=f"{_score_diff(rows, gq['rows']):.4f}")
 
     t0 = time.perf_counter()
-    det16q.detect_device(staged, 0.35, 0.35)
+    picks = k4_picks(det16q.model, lambda: det16q.detect_device(staged, 0.35, 0.35))
+    if picks.get("wgmma", 0) < 108:
+        raise AssertionError(f"the flagship's K4 variants {picks}: fewer than 108 wgmma")
     torch.cuda.synchronize()
     _reset_counts()
     out = det16q.detect_tensor(frames, conf_thresh=0.35, nms_thresh=0.35)  # the main path
     k4, k5, k1 = _int8_counts()
+    k4_by = _k4_counts()
     n_int8 = checked["flagship_bf16"]["convs"]  # the convs a forward runs
     if out.shape != (BATCH, 2, 750, 5) or not np.isfinite(out).all():
         raise AssertionError(f"bad int8 flagship output {out.shape}")
-    if k4 != n_int8 or k5 != n_int8 or k1 != 1:
-        raise AssertionError(f"int8 flagship path: {k4} K4, {k5} K5, {k1} K1 launches "
-                             f"(want {n_int8}, {n_int8}, 1)")
+    if k4 != n_int8 or k5 != n_int8 or k1 != 1 or k4_by != {v: picks.get(v, 0) for v in k4_by}:
+        raise AssertionError(f"int8 flagship path: {k4} K4 ({k4_by}, picked {picks}), {k5} K5, "
+                             f"{k1} K1 launches (want {n_int8}, {n_int8}, 1)")
     rates = {}
     for name, det in (("int8", det16q), ("bf16", det16)):
         _warm(lambda: det.detect_device(staged, 0.35, 0.35))
@@ -1962,7 +2098,8 @@ def phase_int8(device, det16):
            int8_images_per_s=f"{max(rates['int8']):.2f}",
            bf16_images_per_s=f"{max(rates['bf16']):.2f}",
            rates={k: [round(r, 2) for r in v] for k, v in rates.items()},
-           k4_launches=k4, k5_launches=k5, k1_launches=k1, count_035_int8=counts[0],
+           k4_launches=k4, k4_wgmma=k4_by["wgmma"], k4_mma_sync=k4_by["mma_sync"],
+           k5_launches=k5, k1_launches=k1, count_035_int8=counts[0],
            count_035_bf16=counts[1],
            matched=[round(d["matched"], 2) for d in drifts], mean_matched=f"{mean_matched:.3f}",
            limits={k: round(v, 4) for k, v in limits.items()},
@@ -1970,39 +2107,47 @@ def phase_int8(device, det16):
            score_diff_max=f"{max(d['score_diff'] for d in drifts):.4f}")
 
     t0 = time.perf_counter()
-    launches = {"k4": k4, "k5": k5, "k1": k1}
+    launches = {"k4": k4, "k5": k5, "k1": k1, **{f"k4_{v}": c for v, c in k4_by.items()}}
     fb_frames = torch.from_numpy(np.random.RandomState(3).randint(
         0, 256, (FACEBOX_BATCH, FACEBOX_SIZE, FACEBOX_SIZE, 3), dtype=np.uint8)).to(device)
     for name, run, want in (
             ("try1", lambda: try1.detect_device(staged), checked["try1_bf16"]["convs"]),
             ("facebox", lambda: facebox.detect_device(fb_frames)[0],
              checked["facebox_bf16"]["convs"])):
-        run()
+        model = try1.model if name == "try1" else facebox.model
+        picked = k4_picks(model, run)
         torch.cuda.synchronize()
         _reset_counts()
         got = run()
-        counts = _int8_counts()
-        if not bool(torch.isfinite(got).all()) or counts != (want, want, 1):
+        counts, by = _int8_counts(), _k4_counts()
+        if (not bool(torch.isfinite(got).all()) or counts != (want, want, 1)
+                or by != {v: picked.get(v, 0) for v in by}):
             raise AssertionError(f"int8 {name}: finite {bool(torch.isfinite(got).all())}, "
-                                 f"K4/K5/K1 launches {counts} (want {want}, {want}, 1)")
+                                 f"K4/K5/K1 launches {counts} (want {want}, {want}, 1), K4 "
+                                 f"by variant {by} (picked {picked})")
         for key, c in zip(("k4", "k5", "k1"), counts):
             launches[key] += c
+        for v, c in by.items():
+            launches[f"k4_{v}"] += c
         launches[f"{name}_convs"] = want
+        launches[f"{name}_k4"] = by
     split = _time_split(lambda: det16q.detect_device(staged, 0.35, 0.35))
-    timed = int8_timings(det16q, staged)
+    timed, sums = int8_timings(det16q, staged)
     for t in timed:
         print("[int8] " + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
                                   for k, v in t.items()), flush=True)
     print("[int8] split " + " ".join(f"{k}={v:.3f}" for k, v in sorted(split["parts"].items()))
           + f" wall_ms={split['wall_ms']:.3f} device_ms={split['device_ms']:.3f}"
           + f" idle_pct={split['idle_pct']:.1f}" if split["parts"] else "[int8] split: no device time")
+    print("[int8] batch bounds " + json.dumps(sums), flush=True)
     _phase("int8_variants", t0, try1_convs=launches["try1_convs"],
-           facebox_convs=launches["facebox_convs"], timed_shapes=len(timed))
+           facebox_convs=launches["facebox_convs"], try1_k4=launches["try1_k4"],
+           facebox_k4=launches["facebox_k4"], timed_shapes=len(timed))
     # the largest K4 and K5 differences from their plain versions, over every
     # comparison of this phase (0, or it raised)
     errors = {f"k{i}": max([v[f"k{i}_err"] for v in checked.values()]
                            + [t[f"k{i}_err"] for t in timed]) for i in (4, 5)}
-    return launches, timed, errors
+    return launches, timed, sums, errors
 
 
 # K3's kernels, both variants (and the one of a checkout from before them)
@@ -2010,7 +2155,8 @@ K3_KERNELS = r"track_assoc_(?:smem_|global_)?kernel"
 # kernel name → part of a detect, first match wins (PyTorch's, cuDNN's and
 # cuBLAS's kernel names; K1's are nms_*_kernel)
 KERNEL_PARTS = (("k1", r"nms_\w+_kernel"), ("k3", K3_KERNELS),
-                ("k4", r"conv_int8_kernel"), ("k5", r"amax_kernel|quantize_\w*kernel"),
+                ("k4_wgmma", r"conv_int8_wgmma_kernel"), ("k4_mma_sync", r"conv_int8_kernel"),
+                ("k5", r"amax_kernel|quantize_\w*kernel"),
                 ("sort", r"[Ss]ort|[Rr]adix"),
                 ("conv_matmul", r"conv|cudnn|xmma|gemm|cutlass|implicit|winograd|fft"),
                 ("gather_index", r"[Gg]ather|[Ii]ndex|[Ss]catter"))
@@ -3673,7 +3819,7 @@ def main() -> int:
     det32, det16, launches, boxes_err = phase_flagship(device)
     facebox_det, k2_launches = phase_facebox(device)
     phase_variants(device)
-    int8_launches, int8_timed, int8_err = phase_int8(device, det16)
+    int8_launches, int8_timed, int8_sums, int8_err = phase_int8(device, det16)
     mtcnn_launches, mtcnn_err = phase_mtcnn(device)
     track_k1_launches, track_k1_err, k3, k3_global = phase_tracking(device)
     phase_serving(det32, facebox_det)
@@ -3685,10 +3831,28 @@ def main() -> int:
     demo_launches = phase_video_demo(video_det, floor, facebox_det, device, frames)
 
     # PyTorch has no NMS call (and torchvision is not installed) and no
-    # greedy-association call: no library_ms.  K4 and K5 at the flagship's
-    # heaviest int8 conv
-    k4 = int8_timed[0]
-    k4_library = None if str(k4["int_mm_ms"]).startswith("refused") else float(k4["int_mm_ms"])
+    # greedy-association call: no library_ms.  K4's wgmma variant and K5 at
+    # the flagship's heaviest int8 conv, K4's mma_sync variant at its stem;
+    # batch_bound_ms: the sum of the bounds over the convs of a batch that
+    # the row's kernel runs (chip_smoke.int8_timings)
+    k4_rows = []
+    for variant, row_name in (("wgmma", "conv_int8_wgmma (K4, wgmma)"),
+                              ("mma_sync", "conv_int8 (K4, mma_sync)")):
+        t = next(t for t in int8_timed if t["variant"] == variant)
+        library = None if str(t["int_mm_ms"]).startswith("refused") else float(t["int_mm_ms"])
+        k4_rows.append({
+            "name": row_name, "route": "cuda", "source": "fdt_torch/csrc/conv_int8.cu",
+            "replaces": "fdt/ops/quant.py:123",
+            "launches": int8_launches[f"k4_{variant}"], "max_abs_err": int8_err["k4"],
+            "ms": t["k4_ms"], "plain_ms": t["k4_plain_ms"], "bound_ms": t["k4_bound_ms"],
+            "bound_by": t["k4_bound_by"], "shape": t["shape"], "mnk": t["mnk"],
+            "batch_bound_ms": int8_sums["k4_bound_ms"].get(variant, 0.0),
+            # torch._int_mm (cuBLASLt) on the same (M, N, K) GEMM, its im2col
+            # not counted; cuDNN's bf16 conv of the same shape beside it as context
+            "library_ms": library, "library": "torch._int_mm, im2col excluded",
+            "library_error": None if library is not None else t["int_mm_ms"],
+            "cudnn_bf16_ms": t["cudnn_bf16_ms"]})
+    k5 = int8_timed[0]
     print(json.dumps({"kernels": [{
         "name": "nms_tiled (K1)", "route": "cuda",
         "source": "fdt_torch/csrc/nms_tiled.cu",
@@ -3724,21 +3888,13 @@ def main() -> int:
         "bound_ms": k3_global["bound_ms"], "bound_by": k3_global["bound_by"],
         "library_ms": None, "device_ms": k3_global["device_ms"],
         "host_ms": k3_global["host_ms"]}, {
-        "name": "conv_int8 (K4)", "route": "cuda", "source": "fdt_torch/csrc/conv_int8.cu",
-        "replaces": "fdt/ops/quant.py:123",
-        "launches": int8_launches["k4"], "max_abs_err": int8_err["k4"],
-        "ms": k4["k4_ms"], "plain_ms": k4["k4_plain_ms"], "bound_ms": k4["k4_bound_ms"],
-        "bound_by": k4["k4_bound_by"], "shape": k4["shape"], "mnk": k4["mnk"],
-        # torch._int_mm (cuBLASLt) on the same (M, N, K) GEMM, its im2col not
-        # counted; cuDNN's bf16 conv of the same shape beside it as context
-        "library_ms": k4_library, "library": "torch._int_mm, im2col excluded",
-        "library_error": None if k4_library is not None else k4["int_mm_ms"],
-        "cudnn_bf16_ms": k4["cudnn_bf16_ms"]}, {
+        **k4_rows[0]}, {**k4_rows[1]}, {
         "name": "quantize_int8 (K5)", "route": "cuda", "source": "fdt_torch/csrc/quantize_int8.cu",
         "replaces": "fdt/ops/quant.py:69",
         "launches": int8_launches["k5"], "max_abs_err": int8_err["k5"],
-        "ms": k4["k5_ms"], "plain_ms": k4["k5_plain_ms"], "bound_ms": k4["k5_bound_ms"],
-        "bound_by": k4["k5_bound_by"], "shape": k4["shape"],
+        "ms": k5["k5_ms"], "plain_ms": k5["k5_plain_ms"], "bound_ms": k5["k5_bound_ms"],
+        "bound_by": k5["k5_bound_by"], "shape": k5["shape"],
+        "batch_bound_ms": int8_sums["k5_bound_ms"],
         "library_ms": None}]}))  # no one PyTorch call computes amax and the quantization
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -15,10 +15,12 @@ replacing a Pallas kernel (fdt leaves this path to XLA):
   K5, quantize_int8 (fdt_torch/csrc/quantize_int8.cu): the per-tensor amax
       and the quantization of fdt's quantize_symmetric(x, axes=None)
       (fdt/ops/quant.py:69-79, called at :121), written NHWC, with the scale
-      left on the device (no host read);
+      left on the device (no host read), in one launch with a grid barrier;
   K4, conv_int8 (fdt_torch/csrc/conv_int8.cu): the int8 convolution and its
       dequantization epilogue (fdt/ops/quant.py:122-133), an implicit GEMM
-      on the int8 tensor cores.
+      on the int8 tensor cores, in two variants that conv_variant picks by
+      geometry: "wgmma" (wgmma fed by an mbarrier ring) and "mma_sync"
+      (mma.sync; the 3-channel stems, grouped convs, unaligned views).
 
 For CPU tensors each wrapper computes its plain version (quantize_int8_plain,
 conv_int8_plain); for CUDA tensors it launches its kernel or raises.
@@ -33,6 +35,7 @@ int8_convs) where fdt reads it at trace time.
 from __future__ import annotations
 
 import contextlib
+import struct
 import threading
 
 import torch
@@ -44,15 +47,33 @@ from fdt_torch.ops.nms import _Launches
 # Quantize a conv only when its per-output reduction (kh*kw*cin/groups) is at
 # least this large; smaller convs keep the float path (fdt/ops/quant.py:41)
 MIN_QUANT_REDUCTION = 32
-# K4's block tile along N (output channels of a group) and K (the reduction):
-# pack_weight pads the weights to these, so the kernel reads them unmasked
-TILE_N, TILE_K = 64, 32
+# pack_weight pads N (output channels of a group) and K (the reduction) of
+# K4's weights to these: the mma_sync variant's N tile, the wgmma variant's
+# K stage (both variants read the padding unmasked)
+TILE_N, TILE_K = 64, 64
+# the wgmma variant's N tiles (wgmma's N): the smallest that holds N, the
+# widest for N past it
+WGMMA_TILE_N = (8, 64, 128, 256)
 # float32(1/127): XLA rewrites fdt's division by the constant 127 into a
 # product with its float32 reciprocal (the kernel's kInv127)
 _INV127 = torch.tensor(1 / 127, dtype=torch.float32)
 
-launches = _Launches()           # K4
+launches = _Launches()           # K4, the wgmma variant
+mma_sync_launches = _Launches()  # K4, the mma_sync variant
 quantize_launches = _Launches()  # K5
+# K5's grid-barrier state and partial maxima, one buffer a (device,
+# stream): zero when made, then kept by the kernel
+_GRID_STATE: dict = {}
+_STATE_WORDS = 4  # the words before the partials (quantize_int8.cu's kStateWords)
+_GRID_STATE_LOCK = threading.Lock()
+# The kernels' arguments, packed into one buffer of 64-bit fields in the
+# order of their C structs: pointers (and the stream) unsigned, the rest
+# signed.  K5 (QuantArgs): x, q, scale, state, stream; device, the state's
+# words, is_bf16, b, c, h, w, x's strides.  K4 (ConvArgs): xq, sx, wpack,
+# sw, bias (0: none), y, stream; device, b, h, w, c, ho, wo, kh, kw, sh, sw,
+# ph, pw, dh, dw, groups, n, Ngp, Kp, y's strides, out_bf16, tile_n.
+_QUANT_ARGS = struct.Struct("<5Q11q")
+_CONV_ARGS = struct.Struct("<7Q25q")
 
 _STATE = threading.local()
 
@@ -129,8 +150,8 @@ def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     Args:
       x: [B,C,H,W] float32 or bfloat16, NCHW or channels-last.
     Returns: (q [B,H,W,C] int8 contiguous, scale [1] float32 on x's device).
-    On the card two launches (the amax, then the quantization); the scale
-    stays on the device.
+    On the card one launch (the amax, a grid barrier, then the
+    quantization); the scale stays on the device.
     """
     _check_activation(x)
     if x.device.type == "cpu":
@@ -142,40 +163,83 @@ def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     if x.numel() >= 2**31:
         raise ValueError(f"tensor too large for the kernel: {x.numel()} elements")
     b, c, h, w = x.shape
+    is_bf16 = int(x.dtype == torch.bfloat16)
     q = torch.empty((b, h, w, c), dtype=torch.int8, device=x.device)
     scale = torch.empty((1,), dtype=torch.float32, device=x.device)
-    partials = torch.empty((library().fdt_quantize_int8_partials(x.numel()),),
-                           dtype=torch.int32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = library().fdt_quantize_int8(
-            x.data_ptr(), q.data_ptr(), scale.data_ptr(), partials.data_ptr(),
-            int(x.dtype == torch.bfloat16), b, c, h, w, *x.stride(), stream)
+    device = x.device.index
+    # the raw stream handle, as PyTorch's own kernel launchers read it: a
+    # torch.cuda.Stream object and a device context cost microseconds a call
+    stream = torch._C._cuda_getCurrentRawStream(device)
+    state = _grid_state(x.device, stream)
+    err = library().fdt_quantize_int8(_QUANT_ARGS.pack(
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), state.data_ptr(), stream, device,
+        state.numel(), is_bf16, b, c, h, w, *x.stride()))
     if err != 0:
         raise RuntimeError(f"fdt_quantize_int8 launch failed: CUDA error {err}")
     quantize_launches.count += 1
     return q, scale
 
 
+def _grid_state(device: torch.device, stream: int) -> torch.Tensor:
+    """K5's grid-barrier state for (device, stream), with room for the
+    partial maxima of the largest grid either dtype takes: zeroed once, then
+    kept by the kernel (calls on one stream run one after another; each
+    stream has its own, so calls on two streams never share a barrier)."""
+    key = (device.index, stream)
+    with _GRID_STATE_LOCK:
+        if key not in _GRID_STATE:
+            from fdt_torch.ops._build import library
+
+            with torch.cuda.device(device):
+                blocks = [library().fdt_quantize_int8_grid(2**31 - 1, is_bf16)
+                          for is_bf16 in (0, 1)]
+            if min(blocks) < 0:
+                raise RuntimeError(f"fdt_quantize_int8_grid failed: CUDA error {-min(blocks)}")
+            _GRID_STATE[key] = torch.zeros((_STATE_WORDS + max(blocks),), dtype=torch.int32,
+                                           device=device)
+        return _GRID_STATE[key]
+
+
 def pack_weight(wq: torch.Tensor, groups: int) -> torch.Tensor:
-    """int8 OIHW weights → K4's layout: [groups, Ng padded to TILE_N, K padded
-    to TILE_K], K in (kh, kw, cin) order (the order of an NHWC patch), zeros
-    in the padding."""
+    """int8 OIHW weights → K4's layout, K-chunk-major: [groups, Kp / 16,
+    Ngp, 16], where row n of chunk j holds bytes 16j..16j+15 of output
+    channel n's K, K in (kh, kw, cin) order (the order of an NHWC patch), Ng
+    padded to Ngp (a multiple of TILE_N) and K to Kp (of TILE_K), zeros in
+    the padding.  A weight tile of one 16-byte chunk is then one contiguous
+    run of rows, which the wgmma variant brings by one bulk copy."""
     o, cg, kh, kw = wq.shape
     ng, k = o // groups, kh * kw * cg
-    packed = torch.zeros((groups, -(-ng // TILE_N) * TILE_N, -(-k // TILE_K) * TILE_K),
-                         dtype=torch.int8, device=wq.device)
-    packed[:, :ng, :k] = wq.permute(0, 2, 3, 1).reshape(groups, ng, k)
-    return packed
+    ngp, kp = -(-ng // TILE_N) * TILE_N, -(-k // TILE_K) * TILE_K
+    rows = torch.zeros((groups, ngp, kp), dtype=torch.int8, device=wq.device)
+    rows[:, :ng, :k] = wq.permute(0, 2, 3, 1).reshape(groups, ng, k)
+    return rows.reshape(groups, ngp, kp // 16, 16).permute(0, 2, 1, 3).contiguous()
 
 
 def unpack_weight(packed: torch.Tensor, out_channels: int, cg: int,
                   kernel: tuple[int, int]) -> torch.Tensor:
     """pack_weight's inverse: the int8 OIHW weights."""
-    groups = packed.shape[0]
+    groups, chunks, ngp, _ = packed.shape
     ng, (kh, kw) = out_channels // groups, kernel
-    return (packed[:, :ng, :kh * kw * cg].reshape(out_channels, kh, kw, cg)
-            .permute(0, 3, 1, 2))
+    rows = packed.permute(0, 2, 1, 3).reshape(groups, ngp, chunks * 16)
+    return rows[:, :ng, :kh * kw * cg].reshape(out_channels, kh, kw, cg).permute(0, 3, 1, 2)
+
+
+def conv_variant(channels: int, groups: int, address: int) -> str:
+    """K4's variant for an int8 activation of `channels` channels at byte
+    `address` (its data_ptr) under `groups`: "wgmma" where groups is 1, the
+    channels a multiple of 16 (so that each 16-byte piece of a patch row lies
+    inside one tap) and the activation 16-byte aligned (quantize_int8's q
+    always is); else "mma_sync", the first kernel, which gathers 16-, 4- or
+    1-byte pieces (the 3-channel stems, grouped convs, unaligned views)."""
+    if groups == 1 and channels % 16 == 0 and address % 16 == 0:
+        return "wgmma"
+    return "mma_sync"
+
+
+def conv_tile_n(n: int) -> int:
+    """The wgmma variant's N tile for n output channels: the smallest of
+    WGMMA_TILE_N that holds n, else the widest (n then spans several)."""
+    return next((t for t in WGMMA_TILE_N if n <= t), WGMMA_TILE_N[-1])
 
 
 def conv_output_size(size: int, kernel: int, stride: int, padding: int,
@@ -217,10 +281,10 @@ def _check_conv(xq, sx, wpack, sw, bias, kernel, groups, out_dtype) -> None:
         raise ValueError(f"{c} input channels do not split into {groups} groups")
     n = sw.numel()
     k = kernel[0] * kernel[1] * (c // groups)
-    if (wpack.dtype != torch.int8 or wpack.dim() != 3 or wpack.shape[0] != groups
-            or n % groups or wpack.shape[1] < n // groups or wpack.shape[1] % TILE_N
-            or wpack.shape[2] < k or wpack.shape[2] % TILE_K):
-        raise ValueError(f"wpack must be pack_weight's int8 [groups, Ng, K] layout "
+    if (wpack.dtype != torch.int8 or wpack.dim() != 4 or wpack.shape[0] != groups
+            or n % groups or wpack.shape[2] < n // groups or wpack.shape[2] % TILE_N
+            or wpack.shape[1] * 16 < k or wpack.shape[1] * 16 % TILE_K or wpack.shape[3] != 16):
+        raise ValueError(f"wpack must be pack_weight's int8 [groups, K / 16, Ng, 16] layout "
                          f"(groups {groups}, N {n}, K {k}), got {wpack.dtype} "
                          f"{tuple(wpack.shape)}")
     if sx.dtype != torch.float32 or sx.numel() != 1 or sw.dtype != torch.float32 or sw.dim() != 1:
@@ -251,7 +315,9 @@ def conv_int8(xq: torch.Tensor, sx: torch.Tensor, wpack: torch.Tensor, sw: torch
       bias: [Cout] in out_dtype, or None.
       kernel, stride, padding, dilation: (h, w) pairs; groups: int.
       out_dtype: float32 or bfloat16; channels_last: the output's layout.
-    Returns: [B, Cout, Ho, Wo] in out_dtype.  On the card one launch.
+    Returns: [B, Cout, Ho, Wo] in out_dtype.  On the card one launch, of
+    the variant conv_variant picks (counted in `launches` for "wgmma",
+    `mma_sync_launches` for "mma_sync").
     """
     _check_conv(xq, sx, wpack, sw, bias, kernel, groups, out_dtype)
     args = dict(kernel=kernel, stride=stride, padding=padding, dilation=dilation,
@@ -271,17 +337,18 @@ def conv_int8(xq: torch.Tensor, sx: torch.Tensor, wpack: torch.Tensor, sw: torch
                          f"{ho}x{wo}x{n}")
     fmt = torch.channels_last if channels_last else torch.contiguous_format
     y = torch.empty((b, n, ho, wo), dtype=out_dtype, device=xq.device, memory_format=fmt)
-    with torch.cuda.device(xq.device):
-        stream = torch.cuda.current_stream(xq.device).cuda_stream
-        err = library().fdt_conv_int8(
-            xq.data_ptr(), sx.data_ptr(), wpack.data_ptr(), sw.data_ptr(),
-            None if bias is None else bias.data_ptr(), y.data_ptr(),
-            b, h, w, c, ho, wo, *kernel, *stride, *padding, *dilation, groups, n,
-            wpack.shape[1], wpack.shape[2], *y.stride(), int(out_dtype == torch.bfloat16),
-            stream)
+    x_ptr, device = xq.data_ptr(), xq.device.index
+    wgmma = conv_variant(c, groups, x_ptr) == "wgmma"
+    name = "fdt_conv_int8_wgmma" if wgmma else "fdt_conv_int8"
+    err = getattr(library(), name)(_CONV_ARGS.pack(
+        x_ptr, sx.data_ptr(), wpack.data_ptr(), sw.data_ptr(),
+        0 if bias is None else bias.data_ptr(), y.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(device), device, b, h, w, c, ho, wo, *kernel,
+        *stride, *padding, *dilation, groups, n, wpack.shape[2], wpack.shape[1] * 16,
+        *y.stride(), int(out_dtype == torch.bfloat16), conv_tile_n(n) if wgmma else 0))
     if err != 0:
-        raise RuntimeError(f"fdt_conv_int8 launch failed: CUDA error {err}")
-    launches.count += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    (launches if wgmma else mma_sync_launches).count += 1
     return y
 
 

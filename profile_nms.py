@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Time the greedy-NMS kernels K1 (nms_keep_tiled) or K2 (nms_keep_greedy),
-or the tracker's association kernel K3 (associate_chunk), of fdt_torch on
-one CUDA card.
+the tracker's association kernel K3 (associate_chunk), or the int8 path's
+kernels K4 (conv_int8) and K5 (quantize_int8), of fdt_torch on one CUDA card.
 
-    python3 profile_nms.py [--kernel k1|k2|k3] [--tree DIR ...] [--out FILE]
+    python3 profile_nms.py [--kernel k1|k2|k3|k4|k5] [--tree DIR ...] [--out FILE]
 
 Each --tree is the root of a checkout whose fdt_torch is built (into its own
 fdt_torch/_build) and timed, in the order given, so that two versions of a
@@ -28,6 +28,16 @@ and the device time of the shared-memory variant's own code with its slot
 state and lists in device memory instead (checked bit for bit against the
 plain version first) beside the variant's, also at t-over-smem, where the
 device-memory variant runs.
+For K4 and K5 a line for every int8 conv that one detect of the bf16 int8
+flagship runs (batch 8, 640², chip_smoke.flagship_batch(), in forward
+order), on the conv's own input: its class (wide kxk, 1x1, head, stem),
+M/N/K, the K4 variant it takes, K4's ms by CUDA events and its device ms by
+torch.profiler, its bound and what bounds it, torch._int_mm on the same
+GEMM (k4 only), K5's ms (the same two) and bound, the host ms a call of
+both wrappers and of the conv's forward, both kernels checked bit for bit
+against their plain versions first; then one line of
+sums over the batch (by K4 variant too) and the registers, spills and shared
+memory that ptxas reports for the tree's K4 and K5 kernels.
 """
 from __future__ import annotations
 
@@ -301,6 +311,81 @@ def k3_lines(tree: pathlib.Path, log: str) -> list[dict]:
     return lines
 
 
+# the int8 path's kernels in a tree's ptxas report: K4 (either variant) and
+# K5 (the one-launch kernel, or the two of a checkout from before it)
+INT8_KERNELS = (r"(conv_int8_(?:wgmma_)?kernel|amax_kernel|quantize_\w*?kernel)"
+                r"(?:I(.*?)EEv)?")
+
+
+def int8_lines(tree: pathlib.Path, log: str, kernel: str) -> list[dict]:
+    """The per-conv sweep of K4 and K5 (kernel "k4") or K5 alone ("k5") over
+    one detect of the bf16 int8 flagship at batch 8, 640², with the tree's
+    kernels; then the batch's sums and ptxas' report."""
+    import torch
+
+    from fdt_torch.ops import _build
+
+    chip_smoke = _chip_smoke()
+    from fdt_torch.infer import PyramidBoxDetector
+    from fdt_torch.models import load_pyramidbox
+
+    device = torch.device("cuda", 0)
+    det = PyramidBoxDetector(load_pyramidbox(str(chip_smoke.WEIGHTS)), dtype=torch.bfloat16,
+                             device=device, quant="int8")
+    staged = torch.from_numpy(chip_smoke.flagship_batch()).to(device)
+    det.detect_device(staged, 0.35, 0.35)
+    timed, sums = chip_smoke.int8_timings(det, staged, select=list, plain=False, cudnn=False)
+    card = torch.cuda.get_device_name(0)
+    lines = []
+    for i, t in enumerate(timed):
+        if kernel == "k5":
+            t = {k: v for k, v in t.items()
+                 if k.startswith(("k5", "forward")) or k in ("shape", "class")}
+        lines.append({"tree": str(tree), "card": card, "kernel": kernel, "conv": i, **t})
+
+    def device_sum(key, rows):  # the convs whose kernel the profiler caught
+        return sum(t[key] for t in rows if t[key] is not None)
+
+    classes = sorted({t["class"] for t in timed})
+    total = {"tree": str(tree), "card": card, "kernel": kernel, "convs": len(timed),
+             "k5_ms": sum(t["k5_ms"] for t in timed),
+             "k5_host_ms": sum(t["k5_host_ms"] for t in timed),
+             "forward_host_ms": sum(t["forward_host_ms"] for t in timed),
+             "k5_device_ms": device_sum("k5_device_ms", timed),
+             "k5_device_missed": sum(t["k5_device_ms"] is None for t in timed),
+             "k5_bound_ms": sums["k5_bound_ms"]}
+    if kernel == "k4":
+        refused = [t for t in timed if str(t["int_mm_ms"]).startswith("refused")]
+        total.update(
+            k4_ms=sum(t["k4_ms"] for t in timed),
+            k4_host_ms=sum(t["k4_host_ms"] for t in timed),
+            k4_device_ms=device_sum("k4_device_ms", timed),
+            k4_device_missed=sum(t["k4_device_ms"] is None for t in timed),
+            k4_device_ms_by_variant={
+                v: device_sum("k4_device_ms", [t for t in timed if t["variant"] == v])
+                for v in sums["k4_bound_ms"]},
+            k4_device_ms_by_class={
+                c: device_sum("k4_device_ms", [t for t in timed if t["class"] == c])
+                for c in classes},
+            k4_ms_by_variant={v: sum(t["k4_ms"] for t in timed if t["variant"] == v)
+                              for v in sums["k4_bound_ms"]},
+            k4_ms_by_class={c: sum(t["k4_ms"] for t in timed if t["class"] == c)
+                            for c in classes},
+            k4_bound_ms=sum(sums["k4_bound_ms"].values()),
+            k4_bound_ms_by_variant=sums["k4_bound_ms"], convs_by_variant=sums["convs"],
+            k4_ops_bound_ms=sums["k4_ops_bound_ms"],
+            int_mm_ms=sum(float(t["int_mm_ms"]) for t in timed if t not in refused),
+            int_mm_refused=len(refused),
+            k4_ms_where_int_mm=sum(t["k4_ms"] for t in timed if t not in refused))
+    # dynamic shared memory, which ptxas does not report (a tree with the
+    # wgmma variant only)
+    lib = _build.library()
+    if hasattr(lib, "fdt_conv_int8_wgmma_smem"):
+        total["wgmma_dynamic_smem"] = {t: lib.fdt_conv_int8_wgmma_smem(t) for t in (8, 64, 128, 256)}
+    lines.append({**total, "ptxas": ptxas_lines(log, INT8_KERNELS)})
+    return lines
+
+
 def run_tree(tree: pathlib.Path, kernel: str) -> list[dict]:
     """Build the tree's kernels and time one of them (in this process)."""
     import torch
@@ -308,6 +393,8 @@ def run_tree(tree: pathlib.Path, kernel: str) -> list[dict]:
     _, log = _build_tree(tree)
     if kernel == "k3":
         return k3_lines(tree, log)
+    if kernel in ("k4", "k5"):
+        return int8_lines(tree, log, kernel)
     chip_smoke = _chip_smoke()
     timings = chip_smoke.k1_timings() if kernel == "k1" else chip_smoke.k2_timings()
     name = torch.cuda.get_device_name(0)
@@ -555,7 +642,7 @@ def k2_design_lines() -> list[dict]:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("k1", "k2", "k3"), default="k1")
+    ap.add_argument("--kernel", choices=("k1", "k2", "k3", "k4", "k5"), default="k1")
     ap.add_argument("--tree", action="append", type=pathlib.Path,
                     help="checkout root whose fdt_torch is timed (repeatable)")
     ap.add_argument("--one", type=pathlib.Path, help=argparse.SUPPRESS)

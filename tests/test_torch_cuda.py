@@ -472,10 +472,86 @@ def test_int8_kernels_bit_equal_to_plain_at_their_edges(card, name):
     from fdt_torch.ops import quant
 
     x, conv, _ = chip_smoke.int8_edge_case(name, card)
-    before = quant.launches.count, quant.quantize_launches.count
+    before = chip_smoke._int8_counts()[:2]
     assert chip_smoke.check_int8_conv(conv, x) == (0.0, 0.0)
-    assert (quant.launches.count, quant.quantize_launches.count) == (before[0] + 1,
-                                                                     before[1] + 1)
+    assert chip_smoke._int8_counts()[:2] == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("name", chip_smoke.INT8_TILE_EDGES)
+def test_int8_wgmma_tiles_bit_equal_to_plain(card, name):
+    """K4's wgmma variant on chip_smoke.INT8_TILE_EDGES (N tiles of 8 to 256
+    with ragged N and M, K past its last stage, stride 2, dilation 3,
+    float32 outputs through strides, more tiles than SMs) and K5 past one
+    turn of its resident grid, against their plain versions."""
+    from fdt_torch.ops import quant
+
+    x, conv, _ = chip_smoke.int8_edge_case(name, card)
+    before = quant.launches.count
+    assert chip_smoke.check_int8_conv(conv, x) == (0.0, 0.0)
+    assert quant.launches.count == before + 1  # every tile edge takes the wgmma variant
+
+
+def test_int8_k4_variants_launch_as_picked(card):
+    """Each K4 call launches the variant conv_variant names: the wgmma one
+    for 110 of the flagship's 111 int8 convs (the 3-channel stem takes
+    mma_sync) and on the edges it takes, mma_sync on the grouped, 3- and
+    12-channel edges and on an activation one byte off 16-byte alignment."""
+    from fdt_torch.infer import PyramidBoxDetector
+    from fdt_torch.models import load_pyramidbox
+    from fdt_torch.ops import quant
+
+    det = PyramidBoxDetector(load_pyramidbox(str(chip_smoke.WEIGHTS)), dtype=torch.bfloat16,
+                             device=card, quant="int8")
+    frames = torch.from_numpy(np.random.RandomState(2).randint(
+        0, 256, (2, 128, 128, 3), dtype=np.uint8)).to(card)
+    picks = chip_smoke.k4_picks(det.model, lambda: det.detect_device(frames))
+    assert picks == {"wgmma": 110, "mma_sync": 1}
+    before = chip_smoke._k4_counts()
+    det.detect_device(frames)
+    after = chip_smoke._k4_counts()
+    assert {v: after[v] - before[v] for v in after} == picks
+    for name in chip_smoke.INT8_EDGES:
+        x, conv, _ = chip_smoke.int8_edge_case(name, card)
+        xq, _ = quant.quantize_int8(x)
+        want = quant.conv_variant(xq.shape[-1], conv.groups, xq.data_ptr())
+        before = chip_smoke._k4_counts()
+        conv(x)
+        after = chip_smoke._k4_counts()
+        assert {v: after[v] - before[v] for v in after} == {
+            v: int(v == want) for v in after}, name
+    # the same q one byte into its storage: not 16-byte aligned
+    x, conv, _ = chip_smoke.int8_edge_case("head-n4-bf16-cl", card)
+    xq, sx = quant.quantize_int8(x)
+    storage = torch.empty(xq.numel() + 1, dtype=torch.int8, device=card)
+    storage[1:] = xq.reshape(-1)
+    shifted = storage[1:].view(xq.shape)
+    wpack, sw = conv._int8
+    args = dict(kernel=conv.kernel_size, stride=conv.stride, padding=conv.padding,
+                dilation=conv.dilation, groups=1, out_dtype=x.dtype, channels_last=True)
+    before = chip_smoke._k4_counts()
+    got = quant.conv_int8(shifted, sx, wpack, sw, conv.bias, **args)
+    after = chip_smoke._k4_counts()
+    assert {v: after[v] - before[v] for v in after} == {"wgmma": 0, "mma_sync": 1}
+    assert torch.equal(got, quant.conv_int8(xq, sx, wpack, sw, conv.bias, **args))
+
+
+def test_int8_k5_one_launch_a_call(card):
+    """K5 is one kernel launch a call, on the bf16 channels-last path and the
+    float32 NCHW one alike (torch.profiler's kernels of one call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fdt_torch.ops import quant
+
+    for name in ("past-caps-bf16-cl", "past-caps-f32-nchw", "offset-view-bf16-cl"):
+        x, _, _ = chip_smoke.int8_edge_case(name, card)
+        quant.quantize_int8(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            quant.quantize_int8(x)
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and "kernel" in e.name]
+        assert len(kernels) == 1 and "quantize_int8_kernel" in kernels[0], (name, kernels)
 
 
 def test_int8_flagship_convs_bit_equal_to_plain_on_their_inputs(card):
