@@ -116,6 +116,18 @@ Phases, each printing one line with its seconds:
  16. video_demo — run_video with each family (flagship, FaceBoxes, MTCNN's
                host and device cascades) over DEMO_FRAMES frames: answers
                equal to direct calls, the average fps, K1 launches.
+ 17. train  — PyramidBox training (fdt_torch.train): the flagship's 3 steps
+               (640², batch 2, float32 "highest", lr 1e-6) against fdt's
+               golden (train_flagship.npz: loss parts, each leaf's change
+               norm, batch_stats samples); the flagship's step at 640², batch
+               7 (the reference trainer's), float32 with TF32, bf16 and remat:
+               ms (CUDA events), images/s, peak memory; remat's step against
+               the plain one, bf16's first loss against float32's; a
+               torch.profiler split of the float32 step ([train] split);
+               one xavier-initialised step of each of try1-try5 at 640²;
+               python -m fdt_torch.cli.train_pyramid over 8 seeded image
+               files for 5 iterations, resumed from its checkpoint for 5
+               more, then a detect with the trained weights (one K1 call).
 Then a JSON line of the kernels and, last, {"ok": true, "device": {...}}.
 Any failure exits non-zero; a hang exits non-zero with a traceback.
 """
@@ -303,6 +315,78 @@ INT8_TILE_EDGES = {
     "k5-turns-bf16-cl": (8, 128, 100, 100, 8, 1, 1, 0, 1, 1, "bfloat16", True, True, None),
     "k5-turns-f32-nchw": (8, 128, 100, 100, 8, 1, 1, 0, 1, 1, "float32", False, True, None),
 }
+
+# Training (phase train): the flagship's train step against fdt's, the golden
+# fdt's own PyramidTrainer wrote on the CPU (float32, precision "highest")
+# from net_weight/repo_mini.npz with zero momentum: TRAIN_STEPS steps at
+# TRAIN_LR on train_batch(TRAIN_SEED, TRAIN_GOLDEN_BATCH); then the timed
+# steps at the reference trainer's batch of 7 (fdt/train/driver.py:25)
+TRAIN_GOLDEN = GOLDEN_DIR / "train_flagship.npz"
+TRAIN_SEED, TRAIN_GOLDEN_BATCH, TRAIN_STEPS, TRAIN_LR = 0, 2, 3, 1e-6
+TRAIN_BATCH = 7
+TRAIN_SAMPLES = 4  # elements a leaf kept in the golden, at seeded indices
+# The golden check's tolerances, float32 on the card (cuDNN, TF32 off)
+# against fdt's XLA:CPU steps.  TRAIN_LR = 1e-6 keeps the three steps near
+# linear (the loss still falls 13%): at 1e-4 and 1e-5 float32 noise grew to
+# 7% and 0.9% of the loss by step 3 between fdt and the port on the CPU, as
+# it grows between fdt's own float32 and float64 steps (tests/
+# test_torch_train_step.py).  Measured on the CPU (tests/
+# test_torch_train_golden.py): losses 5.1e-6 / 2.1e-5 / 1.2e-4 relative by
+# step; leaf change norms 5.4e-4 of the largest leaf's at most (a leaf's own
+# norm is off by up to 52% only where it is under 1e-4 of the largest:
+# biases before a BatchNorm, whose gradients cancel); batch_stats samples
+# 3.6e-3 relative.
+TRAIN_LOSS_RTOL = (1e-4, 5e-4, 2e-3)
+TRAIN_NORM_RTOL, TRAIN_NORM_ATOL = 5e-2, 5e-3
+TRAIN_STATS_RTOL = 2e-2
+# the bf16 step's first loss against the float32 step's (fdt's bound,
+# tests/test_train_driver.py:306-308); remat against plain
+# (tests/test_train_driver.py:313-360)
+TRAIN_BF16_RTOL = 0.05
+# train step kernels → part, first match wins (cuDNN's BatchNorm kernels are
+# named cudnn::bn_*, so BatchNorm goes before the convolutions)
+TRAIN_PARTS = (("batchnorm", r"batch_norm|bn_fw|bn_bw|bn_|[Bb]atch[Nn]orm"),
+               ("sort", r"[Ss]ort|[Rr]adix"),
+               ("conv", r"conv|cudnn|xmma|gemm|cutlass|implicit|winograd|fft|dgrad|wgrad"),
+               ("optimizer", r"multi_tensor|foreach"))
+
+
+def train_batch(seed: int, batch: int, size: int = SIZE):
+    """A seeded training batch as the driver hands it to the trainer:
+    mean-subtracted noise images [B, S, S, 3] rounded to float16 (the
+    driver's transfer format) and 1-4 seeded faces an image, padded
+    (fdt_torch.train.pad_targets)."""
+    from fdt_torch.config import PIXEL_MEAN_BGR
+    from fdt_torch.train.loops import pad_targets
+    rng = np.random.RandomState(seed)
+    images = (rng.randint(0, 256, (batch, size, size, 3)).astype(np.float32)
+              - np.array(PIXEL_MEAN_BGR, np.float32)).astype(np.float16)
+    targets = []
+    for _ in range(batch):
+        n = rng.randint(1, 5)
+        wh = 0.03 + rng.rand(n, 2) * 0.25
+        xy = rng.rand(n, 2) * (1 - wh)
+        targets.append(np.hstack([xy, xy + wh, np.zeros((n, 1))]).astype(np.float32))
+    return (images,) + pad_targets(targets)
+
+
+def train_leaf_summary(before: dict, after: dict) -> dict:
+    """Per leaf (flax path), the change of a train run: its sum, its L2 norm
+    and TRAIN_SAMPLES elements after the run at indices seeded by the leaf's
+    position in sorted order."""
+    names = sorted(after)
+    out = {"names": np.array(names), "change_sum": [], "change_norm": [],
+           "sample_index": [], "sample_value": []}
+    for i, name in enumerate(names):
+        a, b = np.asarray(after[name], np.float64).ravel(), np.asarray(before[name],
+                                                                      np.float64).ravel()
+        idx = np.random.RandomState(i).randint(0, a.size, TRAIN_SAMPLES)
+        out["change_sum"].append((a - b).sum())
+        out["change_norm"].append(np.sqrt(((a - b) ** 2).sum()))
+        out["sample_index"].append(idx)
+        out["sample_value"].append(a[idx])
+    return {k: np.asarray(v) for k, v in out.items()}
+
 
 # The video paths: frames of the tracking phase's pan written as PNGs and
 # read back through fdt_torch.data.read_frames, tracked at fdt's batch of 8
@@ -3766,6 +3850,293 @@ def phase_video_demo(det, floor, facebox_det, device, frames) -> int:
     return launches
 
 
+def check_train_golden(trainer, g) -> dict:
+    """TRAIN_STEPS steps of `trainer` (the flagship from repo_mini.npz,
+    float32, "highest") on the golden's batch, held to fdt's golden: loss
+    parts by TRAIN_LOSS_RTOL, each parameter leaf's change norm within
+    TRAIN_NORM_RTOL of its own plus TRAIN_NORM_ATOL of the largest, and the
+    batch_stats samples within TRAIN_STATS_RTOL.  Returns the errors."""
+    from fdt_torch.models.loader import flat_variables, to_jax_variables
+
+    def leaves(model):
+        return flat_variables(to_jax_variables(model))
+
+    batch = train_batch(int(g["seed"]), int(g["batch"]), int(g["size"]))
+    h = hashlib.sha256()
+    for a in batch:
+        h.update(np.ascontiguousarray(a).tobytes())
+    if h.hexdigest() != str(g["batch_sha256"]):
+        raise AssertionError("train: the seeded batch differs from the golden's")
+    before = leaves(trainer.model)
+    losses = []
+    for _ in range(int(g["steps"])):
+        m = trainer.train_step(*batch, float(g["lr"]))
+        losses.append([float(m[k]) for k in g["parts"]])
+    losses = np.array(losses)
+    loss_err = np.abs(losses - g["losses"]) / np.abs(g["losses"])
+    for step, rtol in enumerate(TRAIN_LOSS_RTOL):
+        if loss_err[step].max() > rtol:
+            raise AssertionError(f"train golden: step {step + 1} losses {losses[step]} against "
+                                 f"{g['losses'][step]} (rtol {rtol})")
+    got = train_leaf_summary(before, leaves(trainer.model))
+    if list(got["names"]) != list(g["names"]):
+        raise AssertionError("train golden: the leaves differ from the golden's")
+    params = np.array([n.startswith("params/") for n in got["names"]])
+    scale = g["change_norm"][params].max()
+    norm_err = np.abs(got["change_norm"] - g["change_norm"])[params]
+    bad = norm_err > TRAIN_NORM_RTOL * g["change_norm"][params] + TRAIN_NORM_ATOL * scale
+    if bad.any():
+        worst = got["names"][params][bad][:5].tolist()
+        raise AssertionError(f"train golden: {int(bad.sum())} leaves' change norms off: {worst}")
+    want = g["sample_value"][~params]
+    stats_err = np.abs(got["sample_value"][~params] - want) / np.maximum(np.abs(want), 1e-6)
+    if stats_err.max() > TRAIN_STATS_RTOL:
+        raise AssertionError(f"train golden: batch_stats samples off by {stats_err.max():.3g}")
+    return {"loss_rel_err": loss_err.max(axis=1).tolist(),
+            "norm_rel_err_max": float((norm_err / np.maximum(g["change_norm"][params],
+                                                             1e-30)).max()),
+            "norm_err_of_scale": float(norm_err.max() / scale),
+            "stats_rel_err": float(stats_err.max())}
+
+
+def _train_step_ms(trainer, batch, lr: float, steps: int = 3) -> list[float]:
+    """ms a step by CUDA events: three blocks of `steps` steps after a
+    warm-up of WARMUP_S."""
+    _warm(lambda: trainer.train_step(*batch, lr))
+    return [_cuda_ms(lambda: trainer.train_step(*batch, lr), steps) for _ in range(3)]
+
+
+def _peak_gb(fn) -> float:
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def _train_split(trainer, batch, lr: float, iters: int = 3) -> dict:
+    """One train step by torch.profiler: device ms of its kernels by
+    TRAIN_PARTS (the rest "elementwise"), the idle share of the wall time,
+    and the device ms of the kernels launched inside the two MultiBox losses'
+    forward (matching, the mining sorts, the loss math; a record_function
+    range, part of the name classes above; their backward runs on autograd's
+    thread and counts by name only)."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import fdt_torch.train.loops as loops
+    loss_fn = loops.multibox_loss
+
+    def ranged_loss(*a, **k):
+        with record_function("train.loss"):
+            return loss_fn(*a, **k)
+
+    trainer.train_step(*batch, lr)
+    torch.cuda.synchronize()
+    loops.multibox_loss = ranged_loss
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                trainer.train_step(*batch, lr)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) / iters * 1e3
+    finally:
+        loops.multibox_loss = loss_fn
+    parts, kernels = {}, {}
+    events = prof.events()
+    for evt in events:
+        # the range's own annotation on the device's timeline is no kernel
+        if evt.device_type != torch.autograd.DeviceType.CUDA or evt.name == "train.loss":
+            continue
+        ms = evt.time_range.elapsed_us() / iters / 1e3
+        p = next((p for p, rx in TRAIN_PARTS if re.search(rx, evt.name)), "elementwise")
+        parts[p] = parts.get(p, 0.0) + ms
+        kernels[evt.name] = kernels.get(evt.name, 0.0) + ms
+
+    def subtree_us(evt) -> float:
+        return (sum(k.duration for k in evt.kernels)
+                + sum(subtree_us(ch) for ch in evt.cpu_children))
+
+    loss_ms = sum(subtree_us(e) for e in events if e.name == "train.loss") / iters / 1e3
+    device_ms = sum(parts.values())
+    return {"wall_ms": wall_ms, "device_ms": device_ms, "parts": parts, "loss_fwd_ms": loss_ms,
+            "idle_pct": 100 * (1 - device_ms / wall_ms) if parts else None,
+            "top": sorted(kernels.items(), key=lambda kv: -kv[1])[:6]}
+
+
+def write_train_set(directory: pathlib.Path, n: int = 8) -> pathlib.Path:
+    """n seeded photo_like 480×640 images, JPEG and PNG in turns, 2-3 faces
+    each (30-120 px), and their anno file; returns its path."""
+    from PIL import Image
+    rng = np.random.RandomState(7)
+    lines = []
+    for i in range(n):
+        img = photo_like(480, 640, 40 + i)
+        path = directory / f"train_{i}.{'jpg' if i % 2 else 'png'}"
+        Image.fromarray(np.ascontiguousarray(img[:, :, ::-1])).save(path)
+        faces = []
+        for _ in range(2 + i % 2):
+            side = int(rng.randint(30, 121))
+            x, y = int(rng.randint(0, 640 - side)), int(rng.randint(0, 480 - side))
+            faces += [x, y, side, int(side * 1.2) if y + side * 1.2 < 480 else side]
+        lines.append(f"{path} {len(faces) // 4} " + " ".join(map(str, faces)))
+    anno = directory / "anno.txt"
+    anno.write_text("\n".join(lines) + "\n")
+    return anno
+
+
+def _cli_train(argv) -> dict:
+    """python -m fdt_torch.cli.train_pyramid in this process: its output
+    kept, its closing [train] line returned."""
+    import io
+
+    from fdt_torch.cli import train_pyramid
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        train_pyramid.main(argv)
+    line = next(ln for ln in reversed(out.getvalue().splitlines()) if ln.startswith("[train] "))
+    return json.loads(line[len("[train] "):])
+
+
+def phase_train(device) -> int:
+    """PyramidBox training on the card (fdt_torch.train): the flagship's
+    steps held to fdt's golden; full-width steps timed (repo at 640², batch
+    7: float32 with TF32, bf16, remat), remat's step against the plain one;
+    the step's device split; a step of every mobile variant; the CLI driver
+    over seeded image files, resumed from its checkpoint, and a detect of the
+    trained weights.  Returns K1's launches on that detect."""
+    import tempfile
+
+    from fdt_torch.infer import PyramidBoxDetector
+    from fdt_torch.models import PyramidBox, build_pyramidbox, load_pyramidbox
+    from fdt_torch.models.loader import flat_variables, to_jax_variables
+    from fdt_torch.ops import nms as nms_op
+    from fdt_torch.train.loops import PyramidTrainer, xavier_init
+
+    t0 = time.perf_counter()
+    g = np.load(TRAIN_GOLDEN)
+    weights = load_pyramidbox(str(WEIGHTS)).state_dict()
+
+    def flagship(remat: bool = False):
+        model = PyramidBox(remat=remat)
+        model.load_state_dict(weights)
+        return model
+
+    with _tf32(True):  # the global flags on: precision="highest" turns TF32 off itself
+        golden = check_train_golden(PyramidTrainer(flagship(), "repo", precision="highest",
+                                                   device=device), g)
+    _phase("train_golden", t0, steps=int(g["steps"]), batch=int(g["batch"]),
+           loss_rel_err=[f"{e:.3g}" for e in golden["loss_rel_err"]],
+           norm_err_of_scale=f"{golden['norm_err_of_scale']:.3g}",
+           norm_rel_err_max=f"{golden['norm_rel_err_max']:.3g}",
+           stats_rel_err=f"{golden['stats_rel_err']:.3g}")
+
+    t0 = time.perf_counter()
+    batch = train_batch(TRAIN_SEED + 1, TRAIN_BATCH)
+    lr, results, first = TRAIN_LR, {}, {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16),
+                        ("remat", torch.float32)):
+        trainer = PyramidTrainer(flagship(remat=name == "remat"), "repo", dtype=dtype,
+                                 device=device)
+        gb = _peak_gb(lambda: first.setdefault(name, (trainer.train_step(*batch, lr),
+                                                      to_jax_variables(trainer.model))))
+        ms = _train_step_ms(trainer, batch, lr)
+        results[name] = {"ms": min(ms), "ms_blocks": [round(m, 3) for m in ms],
+                         "images_per_s": TRAIN_BATCH / min(ms) * 1e3, "peak_gb": gb}
+        if name == "f32":
+            split = _train_split(trainer, batch, lr)
+        if name == "bf16" and any(p.dtype != torch.float32 for p in trainer.model.parameters()):
+            raise AssertionError("train bf16: a parameter is no longer float32")
+        del trainer
+        torch.cuda.empty_cache()
+    f32_loss = float(first["f32"][0]["loss"])
+    bf16_diff = abs(float(first["bf16"][0]["loss"]) - f32_loss) / f32_loss
+    if not np.isfinite(f32_loss) or bf16_diff > TRAIN_BF16_RTOL:
+        raise AssertionError(f"train bf16: first loss {float(first['bf16'][0]['loss'])} "
+                             f"against float32 {f32_loss}")
+    remat_err = {}
+    for key in ("loss", "face_loc", "face_conf", "head_loc", "head_conf"):
+        a, b = float(first["remat"][0][key]), float(first["f32"][0][key])
+        if abs(a - b) > 1e-6 * abs(b) + 1e-7:
+            raise AssertionError(f"train remat: {key} {a} against the plain step's {b}")
+    remat_vars, plain_vars = (flat_variables(first[k][1]) for k in ("remat", "f32"))
+    for col, rtol, atol in (("params", 1e-2, 1e-4), ("batch_stats", 1e-3, 1e-5)):
+        remat_err[col] = 0.0
+        for k, y in plain_vars.items():
+            if k.startswith(col + "/"):
+                d = np.abs(remat_vars[k] - y)
+                if (d > atol + rtol * np.abs(y)).any():
+                    raise AssertionError(f"train remat: {k} off the plain step's")
+                remat_err[col] = max(remat_err[col], float(d.max()))
+    for name, r in results.items():
+        print(f"[train] step {name} batch={TRAIN_BATCH} size={SIZE} ms={r['ms']:.3f} "
+              f"blocks={r['ms_blocks']} images_per_s={r['images_per_s']:.2f} "
+              f"peak_gb={r['peak_gb']:.3f}", flush=True)
+    print("[train] split f32 " + json.dumps({
+        "wall_ms": round(split["wall_ms"], 3), "device_ms": round(split["device_ms"], 3),
+        "idle_pct": None if split["idle_pct"] is None else round(split["idle_pct"], 2),
+        "parts": {k: round(v, 3) for k, v in sorted(split["parts"].items())},
+        "loss_fwd_ms": round(split["loss_fwd_ms"], 3),
+        "top": [[n[:60], round(v, 3)] for n, v in split["top"]]}), flush=True)
+    _phase("train_steps", t0, batch=TRAIN_BATCH, f32_ms=f"{results['f32']['ms']:.3f}",
+           bf16_ms=f"{results['bf16']['ms']:.3f}", remat_ms=f"{results['remat']['ms']:.3f}",
+           f32_peak_gb=f"{results['f32']['peak_gb']:.3f}",
+           remat_peak_gb=f"{results['remat']['peak_gb']:.3f}",
+           bf16_first_loss_rel_diff=f"{bf16_diff:.3g}",
+           remat_params_max_abs=f"{remat_err['params']:.3g}",
+           remat_stats_max_abs=f"{remat_err['batch_stats']:.3g}")
+
+    t0 = time.perf_counter()
+    small = train_batch(TRAIN_SEED + 2, 2)
+    variant_ms = {}
+    for variant in ("try1", "try2", "try3", "try4", "try5"):
+        trainer = PyramidTrainer(xavier_init(build_pyramidbox(variant), 0), variant,
+                                 device=device)
+        trainer.train_step(*small, lr)  # first use of the shapes
+        ms = _cuda_ms(lambda: trainer.train_step(*small, lr), 3)
+        m = trainer.train_step(*small, lr)
+        if not all(np.isfinite(float(v)) for v in m.values()):
+            raise AssertionError(f"train {variant}: losses {m}")
+        variant_ms[variant] = round(ms, 3)
+    del trainer
+    _phase("train_variants", t0, batch=2, size=SIZE, ms=variant_ms)
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        anno = write_train_set(tmp)
+        common = ["--net", "repo", "--batch_size", "2", "--lr", "1e-4", "--save_point", "5",
+                  "--eval_freq", "5", "--annoPath", str(anno), "--evalAnnoPath", str(anno),
+                  "--save_folder", str(tmp / "out"), "--max_gt", "4"]
+        first_run = _cli_train(common + ["--iter", "5"])
+        resumed = _cli_train(common + ["--iter", "10", "--start_iter", "5",
+                                       "--resume", str(tmp / "out" / "repo_pyramid_5")])
+        if (first_run["step"], resumed["iterations"], resumed["step"]) != (5, 5, 10):
+            raise AssertionError(f"train cli: steps {first_run} then {resumed}")
+        for f in ("repo_pyramid_loss_5.npy", "repo_pyramid_eval_loss_10.npy",
+                  "repo_pyramid_10/variables.npz", "repo_pyramid_10/opt_state.npz"):
+            if not (tmp / "out" / f).exists():
+                raise AssertionError(f"train cli: {f} was not written")
+        det = PyramidBoxDetector(load_pyramidbox(str(tmp / "out" / "repo_pyramid_10" /
+                                                     "variables.npz")), device=device)
+        frame = photo_like(480, 640, 40)[None]
+        det.detect_tensor(frame, conf_thresh=0.01, nms_thresh=0.35)  # first use of the shape
+        nms_op.launches.reset()
+        out = det.detect_tensor(frame, conf_thresh=0.01, nms_thresh=0.35)  # the main path
+        k1 = nms_op.launches.count
+    if k1 != 1 or not np.isfinite(out).all() or out.shape != (1, 2, 750, 5):
+        raise AssertionError(f"train cli: the trained detector gave {out.shape}, {k1} K1 calls")
+    _phase("train_cli", t0, iterations=first_run["iterations"] + resumed["iterations"],
+           batch=2, augment_images_per_s=resumed["augment_images_per_s"],
+           wait_share=resumed["wait_share"], images_per_s=resumed["images_per_s"],
+           first_wait_share=first_run["wait_share"], k1_launches=k1,
+           detections=int((out[0, 1, :, 0] > 0).sum()))
+    return k1
+
+
 @contextlib.contextmanager
 def warnings_kept():
     """Collect the warnings of the body (the cascade's saturation notes)."""
@@ -3829,6 +4200,7 @@ def main() -> int:
     frames, tracks, video_det, floor, video_k1, video_k3, video_k1_err = phase_video(device)
     phase_video_render(frames, tracks)
     demo_launches = phase_video_demo(video_det, floor, facebox_det, device, frames)
+    train_launches = phase_train(device)
 
     # PyTorch has no NMS call (and torchvision is not installed) and no
     # greedy-association call: no library_ms.  K4's wgmma variant and K5 at
@@ -3859,7 +4231,7 @@ def main() -> int:
         "replaces": "fdt/ops/pallas_nms.py:69",
         "launches": (launches + int8_launches["k1"] + mtcnn_launches + track_k1_launches
                      + http_launches + eval_launches + host_launches + video_k1
-                     + demo_launches),
+                     + demo_launches + train_launches),
         "max_abs_err": max(k1["max_abs_err"], boxes_err, mtcnn_err, track_k1_err,
                            video_k1_err),
         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],

@@ -1,6 +1,6 @@
-from fdt_torch.geometry.boxes import (center_size, decode, intersect,
+from fdt_torch.geometry.boxes import (center_size, decode, encode, intersect,
                                       iou_matrix, point_form)
 from fdt_torch.geometry.nms import nms_keep_mask, nms_numpy, nms_padded
 
-__all__ = ["point_form", "center_size", "intersect", "iou_matrix", "decode",
+__all__ = ["point_form", "center_size", "intersect", "iou_matrix", "encode", "decode",
            "nms_numpy", "nms_keep_mask", "nms_padded"]

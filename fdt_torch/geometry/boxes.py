@@ -39,6 +39,16 @@ def iou_matrix(box_a: torch.Tensor, box_b: torch.Tensor) -> torch.Tensor:
     return inter / (area_a + area_b - inter)
 
 
+def encode(matched: torch.Tensor, priors: torch.Tensor, variances) -> torch.Tensor:
+    """SSD variance encoding of matched GT (point form) against priors (center
+    form): the inverse of :func:`decode`."""
+    g_cxcy = (matched[..., :2] + matched[..., 2:]) / 2 - priors[..., :2]
+    g_cxcy = g_cxcy / (variances[0] * priors[..., 2:])
+    g_wh = (matched[..., 2:] - matched[..., :2]) / priors[..., 2:]
+    g_wh = torch.log(g_wh) / variances[1]
+    return torch.cat([g_cxcy, g_wh], dim=-1)
+
+
 def decode(loc: torch.Tensor, priors: torch.Tensor, variances) -> torch.Tensor:
     """SSD variance decoding: loc deltas + priors (center form) → point form."""
     cxcy = priors[..., :2] + loc[..., :2] * variances[0] * priors[..., 2:]

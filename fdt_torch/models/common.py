@@ -5,6 +5,8 @@ which are the reference torch module paths.  BatchNorm eps is 1e-5.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -22,8 +24,70 @@ def conv(cin: int, cout: int, kernel: int, stride: int = 1, padding: int = 0,
     return int8_convs(c) if quant_mode() == "int8" else c
 
 
-def batch_norm(features: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
+# > 0 while no BatchNorm may update its running statistics: the recompute
+# of a checkpointed forward, and eval_loss's train-mode forward.  A plain
+# counter, not thread-local: autograd recomputes on its own device threads.
+_STATS_FROZEN = 0
+
+
+@contextlib.contextmanager
+def running_stats_frozen():
+    """Train-mode BatchNorm in the body normalises with batch statistics but
+    leaves every running statistic as it was."""
+    global _STATS_FROZEN
+    _STATS_FROZEN += 1
+    try:
+        yield
+    finally:
+        _STATS_FROZEN -= 1
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d whose train mode updates the running statistics as
+    flax's nn.BatchNorm(momentum=0.9) does: with the BIASED batch variance
+    (torch stores the unbiased one, ×n/(n−1)), and not at all inside
+    `running_stats_frozen()`.  Eval mode and the state dict are
+    nn.BatchNorm2d's."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        # one fused pass: torch writes the batch mean and the unbiased
+        # variance into fresh buffers (momentum 1), the biased one is
+        # recovered from it.  A checkpoint's recompute takes the same call,
+        # so that it saves the same tensors for the backward.
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.zeros_like(self.running_var)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
+        if _STATS_FROZEN:
+            return y
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_mean.mul_(0.9).add_(mean, alpha=1 - 0.9)
+            self.running_var.mul_(0.9).add_(var * ((n - 1) / n), alpha=1 - 0.9)
+        return y
+
+
+def checkpoint(fn, *args):
+    """torch.utils.checkpoint of fn(*args) (non-reentrant): the backward
+    recomputes fn's activations instead of keeping them.  The recompute runs
+    under running_stats_frozen(), so a BatchNorm inside updates its running
+    statistics once a step, as fdt's lifted nn.remat does."""
+    from torch.utils.checkpoint import checkpoint as torch_checkpoint
+    return torch_checkpoint(fn, *args, use_reentrant=False,
+                            context_fn=lambda: (contextlib.nullcontext(),
+                                                running_stats_frozen()))
+
+
+def batch_norm(features: int) -> BatchNorm2d:
+    return BatchNorm2d(features, eps=1e-5, momentum=0.1)
+
+
+class NestedSequential(nn.Sequential):
+    """A Sequential that fdt builds as one flax module with numbered
+    children (ResNetStage, _ExtraLayer): its children nest under it in flax
+    paths ("layer1/0/conv1"), where a plain Sequential's index is joined to
+    its name ("downsample__0")."""
 
 
 def max_pool(x: torch.Tensor, kernel: int = 3, stride: int = 2,
@@ -106,27 +170,37 @@ def max_in_out_conf(tmp_conf: torch.Tensor, first_source: bool) -> torch.Tensor:
 def add_pyramid_heads(model: nn.Module, n_sources: int, channels: int) -> None:
     """Register the PyramidBox heads on `model`: face_conf / face_loc over
     every source and the head-supervision branch head_loc / head_conf over
-    sources[1:].  The head branch only carries its parameters, so that a full
-    checkpoint loads strict: detection never computes it (fdt's compiled
-    graph drops it as dead code too)."""
+    sources[1:].  Detection never computes the head branch (fdt's compiled
+    graph drops it as dead code too); training asks for it
+    (`face_outputs(heads=True)`)."""
     model.face_conf = nn.ModuleList([conv(channels, 4, 3, 1, 1) for _ in range(n_sources)])
     model.face_loc = nn.ModuleList([conv(channels, 4, 3, 1, 1) for _ in range(n_sources)])
     model.head_loc = nn.ModuleList([conv(channels, 4, 3, 1, 1) for _ in range(n_sources - 1)])
     model.head_conf = nn.ModuleList([conv(channels, 2, 3, 1, 1) for _ in range(n_sources - 1)])
 
 
-def face_outputs(model: nn.Module, sources) -> dict:
+def face_outputs(model: nn.Module, sources, heads: bool = False) -> dict:
     """The face heads of `model` over its source maps (max-in-out applied),
     reshaped channels-last into prior-major [B, P, ·] float32 tensors, so that
-    prior order matches fdt's NHWC reshape, and the source shapes."""
+    prior order matches fdt's NHWC reshape, and the source shapes.  With
+    `heads` (training) also the head-supervision branch over sources[1:]:
+    head_loc [B, Ph, 4] and head_conf [B, Ph, 2], float32."""
     b = sources[0].shape[0]
     locs, confs = [], []
     for i, s in enumerate(sources):
         tmp_conf = model.face_conf[i](s).permute(0, 2, 3, 1)
         confs.append(max_in_out_conf(tmp_conf, first_source=(i == 0)).reshape(b, -1, 2))
         locs.append(model.face_loc[i](s).permute(0, 2, 3, 1).reshape(b, -1, 4))
-    return {
+    out = {
         "face_loc": torch.cat(locs, 1).float(),
         "face_conf": torch.cat(confs, 1).float(),
         "source_shapes": tuple((s.shape[3], s.shape[2]) for s in sources),
     }
+    if heads:
+        out["head_loc"] = torch.cat([
+            model.head_loc[i](s).permute(0, 2, 3, 1).reshape(b, -1, 4)
+            for i, s in enumerate(sources[1:])], 1).float()
+        out["head_conf"] = torch.cat([
+            model.head_conf[i](s).permute(0, 2, 3, 1).reshape(b, -1, 2)
+            for i, s in enumerate(sources[1:])], 1).float()
+    return out

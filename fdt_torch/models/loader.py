@@ -22,6 +22,8 @@ NCHW as the reference does (the `inverse=True` fixup of
 fdt/models/mtcnn.py:93-113).
 
 Weights are converted in memory at load time; nothing converted is stored.
+The way back (`to_jax_variables`, `save_variables_npz`) writes what the
+port trained in fdt's layout, which fdt's load_variables reads.
 Every PyramidBox variant, FaceBoxes and the MTCNN nets load this way
 (fdt/models/loader.py:102-121 for the detector front doors).
 """
@@ -31,6 +33,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from fdt_torch.models.common import NestedSequential
 from fdt_torch.models.facebox import FaceBox
 from fdt_torch.models.mtcnn import ONet, PNet, RNet
 from fdt_torch.models.pyramidbox_mobile import build_pyramidbox
@@ -79,6 +82,89 @@ def from_jax_variables(variables, flatten_chw: dict | None = None
             if collection == "batch_stats" and path[-1] == "mean":
                 sd[f"{mod}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
     return sd
+
+
+def flax_paths(model: nn.Module) -> dict[str, tuple[str, ...]]:
+    """Torch state-dict key → fdt's flax path (collection first), for every
+    parameter and running statistic of a model of convolutions and
+    BatchNorms (the PyramidBox family, FaceBoxes); num_batches_tracked has
+    none.
+
+    fdt nests a flax module under its parent where the port has a module
+    (Bottleneck, SSHContext, InvertedResidual, ...) and joins a Sequential's
+    or ModuleList's index to its name with `__` ("downsample__0",
+    "features__1", "face_conf__0"), except in a NestedSequential, whose
+    numbered children are flax modules of their own ("layer1/0")."""
+    out: dict[str, tuple[str, ...]] = {}
+
+    def walk(module, prefix, path):
+        for name, child in module.named_children():
+            joined = (isinstance(module, (nn.Sequential, nn.ModuleList))
+                      and not isinstance(module, NestedSequential) and path)
+            child_path = path[:-1] + (f"{path[-1]}__{name}",) if joined else path + (name,)
+            walk(child, f"{prefix}{name}.", child_path)
+        is_bn = isinstance(module, nn.BatchNorm2d)
+        for name, _ in module.named_parameters(recurse=False):
+            if not (is_bn or isinstance(module, nn.Conv2d)):
+                raise ValueError(f"{prefix}{name}: only convolutions and BatchNorm "
+                                 f"carry back to flax, not {type(module).__name__}")
+            leaf = {"weight": "scale" if is_bn else "kernel", "bias": "bias"}[name]
+            out[f"{prefix}{name}"] = ("params",) + path + (leaf,)
+        if is_bn:
+            out[f"{prefix}running_mean"] = ("batch_stats",) + path + ("mean",)
+            out[f"{prefix}running_var"] = ("batch_stats",) + path + ("var",)
+
+    walk(model, "", ())
+    return out
+
+
+def to_flax_array(value: torch.Tensor) -> np.ndarray:
+    """One torch tensor → its flax leaf (float32 numpy, a copy): conv
+    kernels [O,I,kH,kW] → [kH,kW,I,O], the inverse of from_jax_variables."""
+    w = value.detach().float().cpu().numpy()
+    return np.array(w.transpose(2, 3, 1, 0) if w.ndim == 4 else w, order="C", copy=True)
+
+
+def to_jax_variables(model: nn.Module) -> dict:
+    """The inverse of from_jax_variables for a model of convolutions and
+    BatchNorms: its parameters and running statistics as fdt's nested
+    {"params", "batch_stats"} tree of float32 numpy arrays, in flax layout.
+    num_batches_tracked is carried nowhere."""
+    paths = flax_paths(model)
+    tree: dict = {"params": {}, "batch_stats": {}}
+    for key, value in model.state_dict().items():
+        if key not in paths:
+            continue
+        *parents, leaf = paths[key]
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = to_flax_array(value)
+    return tree
+
+
+def flat_variables(tree) -> dict[str, np.ndarray]:
+    """A nested variables tree → {"params/layer1/0/conv1/kernel": array, ...}:
+    the keys of fdt's npz files."""
+    return {"/".join(path): np.asarray(v) for path, v in _flatten(tree)}
+
+
+def save_variables_npz(variables: dict, path: str, dtype=np.float16,
+                       compress: bool = True) -> None:
+    """Write a {"params", "batch_stats"} tree as fdt's save_variables_npz
+    does (fdt/models/loader.py:29-44): `params/...` cast to `dtype` (float16
+    by default; a leaf that would overflow float16 stays float32),
+    `batch_stats/...` float32, np.savez_compressed (np.savez with
+    compress=False: a training checkpoint, where zlib would take seconds a
+    save).  fdt's load_variables reads either."""
+    def cast(v):
+        if dtype == np.float16 and np.abs(v).max() >= np.finfo(np.float16).max:
+            return v.astype(np.float32)
+        return v.astype(dtype)
+    flat = {k: cast(v) if k.startswith("params/") else v.astype(np.float32)
+            for k, v in flat_variables({"params": variables["params"],
+                                        "batch_stats": variables.get("batch_stats", {})}).items()}
+    (np.savez_compressed if compress else np.savez)(path, **flat)
 
 
 def load_npz(path: str) -> dict:

@@ -12,9 +12,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fdt_torch.models.common import (ContextTexture, SSHContext,
-                                     add_pyramid_heads, batch_norm, conv,
-                                     face_outputs, max_pool)
+from fdt_torch.models.common import (ContextTexture, NestedSequential, SSHContext,
+                                     add_pyramid_heads, batch_norm, checkpoint,
+                                     conv, face_outputs, max_pool)
 
 
 class Bottleneck(nn.Module):
@@ -42,29 +42,35 @@ class Bottleneck(nn.Module):
         return F.relu(out + sc)
 
 
-def _resnet_stage(cin: int, num_blocks: int, planes: int, stride: int) -> nn.Sequential:
-    return nn.Sequential(*[Bottleneck(cin if i == 0 else 4 * planes, planes,
+def _resnet_stage(cin: int, num_blocks: int, planes: int, stride: int) -> NestedSequential:
+    return NestedSequential(*[Bottleneck(cin if i == 0 else 4 * planes, planes,
                                       stride if i == 0 else 1)
                            for i in range(num_blocks)])
 
 
-def _extra_layer(cin: int, mid: int, out: int) -> nn.Sequential:
+def _extra_layer(cin: int, mid: int, out: int) -> NestedSequential:
     """conv1×1 → bn → relu → conv3×3/2 → bn → relu (ReLUs at indices 2 and 5)."""
-    return nn.Sequential(conv(cin, mid, 1), batch_norm(mid), nn.ReLU(),
+    return NestedSequential(conv(cin, mid, 1), batch_norm(mid), nn.ReLU(),
                          conv(mid, out, 3, 2, 1), batch_norm(out), nn.ReLU())
 
 
 class PyramidBox(nn.Module):
-    """forward(x [B,3,H,W]) → dict:
+    """forward(x [B,3,H,W], heads=False) → dict:
       face_loc  [B, P, 4] float32    face_conf [B, P, 2] float32 (logits,
       max-in-out applied)            source_shapes: ((f_width, f_height), ...)
+      head_loc  [B, Ph, 4], head_conf [B, Ph, 2] float32 with `heads`
+
+    remat: while gradients are recorded, every Bottleneck and extra layer is
+    checkpointed (fdt's per-block nn.remat), so only block-boundary
+    activations stay live; the parameters and outputs are unchanged.
     """
 
     _SSH_IN = {"conv2_SSH": 256, "conv3_SSH": 512, "conv4_SSH": 1024,
                "conv5_SSH": 2048, "conv6_SSH": 512, "conv7_SSH": 256}
 
-    def __init__(self, num_blocks: Sequence[int] = (3, 4, 6, 3)):
+    def __init__(self, num_blocks: Sequence[int] = (3, 4, 6, 3), remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.conv1 = conv(3, 64, 7, 2, 3, bias=False)
         self.bn1 = batch_norm(64)
         self.layer1 = _resnet_stage(64, num_blocks[0], 64, 1)
@@ -88,14 +94,20 @@ class PyramidBox(nn.Module):
 
         add_pyramid_heads(self, 6, 512)
 
-    def forward(self, x: torch.Tensor) -> dict:
+    def _blocks(self, blocks, x):
+        remat = self.remat and torch.is_grad_enabled()
+        for block in blocks:
+            x = checkpoint(block, x) if remat else block(x)
+        return x
+
+    def forward(self, x: torch.Tensor, heads: bool = False) -> dict:
         c1 = max_pool(F.relu(self.bn1(self.conv1(x))), 3, 2, 1)
-        c2 = self.layer1(c1)
-        c3 = self.layer2(c2)
-        c4 = self.layer3(c3)
-        c5 = self.layer4(c4)
-        c6 = self.layer5(c5)
-        c7 = self.layer6(c6)
+        c2 = self._blocks(self.layer1, c1)
+        c3 = self._blocks(self.layer2, c2)
+        c4 = self._blocks(self.layer3, c3)
+        c5 = self._blocks(self.layer4, c4)
+        c6 = self._blocks([self.layer5], c5)
+        c7 = self._blocks([self.layer6], c6)
 
         c5_lat = self.latlayer_fc(c5)
         c6_lat = self.latlayer_c6(c6)
@@ -111,4 +123,4 @@ class PyramidBox(nn.Module):
                    self.conv4_SSH(c4_fuse), self.conv5_SSH(c5_lat),
                    self.conv6_SSH(c6_lat), self.conv7_SSH(c7_lat)]
 
-        return face_outputs(self, sources)
+        return face_outputs(self, sources, heads)

@@ -12,7 +12,7 @@ fdt/models/pyramidbox_mobile.py).
 NCHW; module names are fdt's flax names with `__` → `.`, so flax weights
 carry across mechanically (fdt_torch.models.loader).  Every variant returns
 the output of fdt_torch.models.pyramidbox.PyramidBox; the head-supervision
-branch keeps its parameters and is never computed.
+branch is computed only with `heads=True` (training).
 """
 from __future__ import annotations
 
@@ -140,7 +140,7 @@ class PyramidBoxMobileV1(nn.Module):
             self.add_module(name, SSHContext(cin, 256))
         add_pyramid_heads(self, 6, 512)
 
-    def forward(self, x) -> dict:
+    def forward(self, x, heads: bool = False) -> dict:
         c1 = max_pool(F.relu(self.bn1(self.conv1_my(x))), 3, 2, 1)
         c2 = self.layer1_my(c1)
         c3 = self.layer2_my(c2)
@@ -165,7 +165,7 @@ class PyramidBoxMobileV1(nn.Module):
         sources = [self.conv2_SSH(c2_fuse), self.conv3_SSH(c3_fuse),
                    self.conv4_SSH(c4_fuse), self.conv5_SSH(c5_lat),
                    self.conv6_SSH(c6_lat), self.conv7_SSH(c7_lat)]
-        return face_outputs(self, sources)
+        return face_outputs(self, sources, heads)
 
 
 # MobileNetV2 (expand ratio, channels, blocks, first stride) per group
@@ -211,7 +211,7 @@ class PyramidBoxMobileV2(nn.Module):
             self.add_module(name, SSHContext(cin, 128))
         add_pyramid_heads(self, 5, 256)
 
-    def forward(self, x) -> dict:
+    def forward(self, x, heads: bool = False) -> dict:
         taps = []
         h = x
         for i, block in enumerate(self.features):
@@ -229,13 +229,18 @@ class PyramidBoxMobileV2(nn.Module):
         c4 = self.smooth_c4(c4)
         sources = [self.conv2_SSH(c2), self.conv3_SSH(c3), self.conv4_SSH(c4),
                    self.conv5_SSH(c5), self.conv6_SSH(c6)]
-        return face_outputs(self, sources)
+        return face_outputs(self, sources, heads)
 
 
-def build_pyramidbox(variant: str) -> nn.Module:
-    """The model of any PyramidBox variant: "repo" (ResNet50) or try1…try5."""
+def build_pyramidbox(variant: str, remat: bool = False) -> nn.Module:
+    """The model of any PyramidBox variant: "repo" (ResNet50) or try1…try5.
+
+    remat: per-block checkpointing, flagship only, as fdt's build_pyramidbox (the
+    trainer checkpoints a mobile variant's whole forward instead)."""
     if variant == "repo":
-        return PyramidBox()
+        return PyramidBox(remat=remat)
+    if remat:
+        raise ValueError("remat is only wired for the 'repo' flagship")
     if variant in ("try1", "try2"):
         return PyramidBoxMobileV1(variant)
     if variant in ("try3", "try4", "try5"):

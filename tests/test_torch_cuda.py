@@ -602,3 +602,45 @@ def test_int8_wrappers_raise_and_never_fall_back_on_card(card, monkeypatch):
         quant.quantize_int8(x)
     with pytest.raises(RuntimeError, match="fdt_conv_int8 launch failed"):
         quant.conv_int8(xq, sx, wpack, sw, None, **args)
+
+
+def _cut_flagship_trainer(device, **kw):
+    from fdt_torch.models import PyramidBox
+    from fdt_torch.train.loops import PyramidTrainer, xavier_init
+    return PyramidTrainer(xavier_init(PyramidBox((1, 1, 1, 1), remat=kw.pop("remat", False)), 0),
+                          "repo", input_size=128, precision="highest", device=device, **kw)
+
+
+def test_train_step_on_card_matches_cpu(card):
+    """One step of the depth-cut flagship (one Bottleneck a stage) at 128²,
+    batch 2, float32 "highest", on the card and on the CPU from the same
+    xavier weights: losses within 1e-4, every change within 1e-2 of the
+    step's largest change (cuDNN's and the CPU's sums differ in order), the
+    running statistics within 1e-3; a remat step on the card stores the
+    plain step's statistics."""
+    from fdt_torch.models.loader import to_jax_variables
+    batch = chip_smoke.train_batch(0, 2, 128)
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}/")
+            else:
+                yield f"{prefix}{k}", v
+
+    before = dict(leaves(to_jax_variables(_cut_flagship_trainer("cpu").model)))
+    runs = {}
+    for name, dev, kw in (("cpu", "cpu", {}), ("card", card, {}), ("remat", card, {"remat": True})):
+        t = _cut_flagship_trainer(dev, **kw)
+        m = t.train_step(*batch, 1e-3)
+        runs[name] = ({k: float(v) for k, v in m.items()}, dict(leaves(to_jax_variables(t.model))))
+    for k, v in runs["cpu"][0].items():
+        assert abs(runs["card"][0][k] - v) <= 1e-4 * abs(v), k
+    got, want = runs["card"][1], runs["cpu"][1]
+    scale = max(np.abs(want[k] - before[k]).max() for k in want if k.startswith("params/"))
+    for k in want:
+        if k.startswith("params/"):
+            assert np.abs((got[k] - before[k]) - (want[k] - before[k])).max() <= 1e-2 * scale, k
+        else:
+            assert np.abs(got[k] - want[k]).max() <= 1e-3 * np.abs(want[k]).max() + 1e-6, k
+            np.testing.assert_array_equal(runs["remat"][1][k], got[k], err_msg=k)

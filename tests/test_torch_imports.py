@@ -55,7 +55,11 @@ def test_every_module_imports_without_building_kernels():
             "fdt_torch.ops.track", "fdt_torch.geometry.track", "fdt_torch.infer.mtcnn",
             "fdt_torch.data.frames", "fdt_torch.track.display", "fdt_torch.apps.video",
             "fdt_torch.cli.track_video", "fdt_torch.cli.track_display",
-            "fdt_torch.cli.video_demo", "fdt_torch.ops.quant"} <= set(names)
+            "fdt_torch.cli.video_demo", "fdt_torch.ops.quant", "fdt_torch.geometry.matching",
+            "fdt_torch.train.multibox_loss", "fdt_torch.train.loops",
+            "fdt_torch.train.checkpoint", "fdt_torch.train.driver", "fdt_torch.utils.watchdog",
+            "fdt_torch.data.resize", "fdt_torch.data.augment", "fdt_torch.data.widerface",
+            "fdt_torch.cli.train_pyramid"} <= set(names)
     for name in names:
         importlib.import_module(name)
     assert _build._lib is None

@@ -64,19 +64,20 @@ def test_configs_match_fdt():
 @pytest.mark.parametrize("size", [(128, 128), (150, 150)], ids=["128", "150"])
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_forward_matches_flax(variant, size):
-    """face_loc, face_conf and source_shapes against build_pyramidbox(v).apply;
-    150² makes the LFPN crop its upsampled maps, and try4/try5's maps break
-    the ceil-halving rule."""
+    """face_loc, face_conf, the head-supervision branch the trainer asks for
+    (head_loc, head_conf with heads=True) and source_shapes against
+    build_pyramidbox(v).apply; 150² makes the LFPN crop its upsampled maps,
+    and try4/try5's maps break the ceil-halving rule."""
     variables, model = seeded_pair(variant)
     h, w = size
     x = (np.random.RandomState(h).rand(1, h, w, 3) * 255 - 117).astype(np.float32)
     with jax.default_matmul_precision("highest"):  # jit: 5x faster than eager here
         want = jax.jit(jax_build(variant).apply)(variables, jnp.asarray(x))
     with torch.no_grad():
-        got = model(torch.from_numpy(x).permute(0, 3, 1, 2).contiguous())
+        got = model(torch.from_numpy(x).permute(0, 3, 1, 2).contiguous(), heads=True)
     assert got["source_shapes"] == want["source_shapes"]
     assert len(got["source_shapes"]) == len(PYRAMID_CONFIGS[variant].face_priors.strides)
-    for key in ("face_loc", "face_conf"):
+    for key in ("face_loc", "face_conf", "head_loc", "head_conf"):
         ref = np.asarray(want[key])
         assert got[key].shape == ref.shape and got[key].dtype == torch.float32
         np.testing.assert_allclose(got[key].numpy(), ref, rtol=0,
