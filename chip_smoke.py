@@ -128,6 +128,22 @@ Phases, each printing one line with its seconds:
                python -m fdt_torch.cli.train_pyramid over 8 seeded image
                files for 5 iterations, resumed from its checkpoint for 5
                more, then a detect with the trained weights (one K1 call).
+ 18. train_families — FaceBoxes, net2net and MTCNN training: each family's
+               3 steps (float32 "highest") against fdt's goldens
+               (train_facebox.npz at 1024², batch 2; train_net2net.npz, each
+               mode, repo teacher, try1 student at 640², batch 2;
+               train_mtcnn.npz, each stage, batch 64: gradients before the
+               update, losses, change norms, update signs); the full-width
+               steps timed (FaceBoxes 1024² batch 16, net2net intermedia
+               640² batch 8, each MTCNN stage batch 512: median ms, images/s,
+               peak memory, device ms and idle share) beside the card's name
+               and power limit; python -m fdt_torch.cli.train_facebox for 4
+               iterations, resumed to 6, then a FaceBoxes detect of its
+               weights (one K1 call); train_net2net for 3 iterations; the
+               MTCNN chain gen_mtcnn_data pnet → train_mtcnn pnet →
+               gen_mtcnn_data rnet → train_mtcnn rnet (one epoch each) on
+               seeded scenes, then the device cascade on the trained nets
+               (K1 counted).
 Then a JSON line of the kernels and, last, {"ok": true, "device": {...}}.
 Any failure exits non-zero; a hang exits non-zero with a traceback.
 """
@@ -137,6 +153,7 @@ import contextlib
 import dataclasses
 import faulthandler
 import hashlib
+import io
 import itertools
 import json
 import pathlib
@@ -351,6 +368,61 @@ TRAIN_PARTS = (("batchnorm", r"batch_norm|bn_fw|bn_bw|bn_|[Bb]atch[Nn]orm"),
                ("optimizer", r"multi_tensor|foreach"))
 
 
+# Training of the other families (phase train_families): each family's
+# FAMILY_STEPS steps against a golden that fdt's own trainer wrote on the
+# CPU (float32, precision "highest"; tests/test_torch_<family>_golden.py):
+# FaceBoxes at 1024² from seeded_variables(FaceBox(), FACEBOX_WEIGHTS_SEED);
+# net2net per mode, teacher net_weight/repo_mini.npz, student
+# NET2NET_STUDENT; each MTCNN stage from seeded_variables(net,
+# MTCNN_TRAIN_WEIGHTS_SEED) on MTCNN_TRAIN_GOLDEN_BATCH patches that carry
+# every label kind.  The lrs keep fdt's float32 steps within 2e-5 of the
+# float64 ones (measured with the port on the CPU: FaceBoxes at 1e-4 1.8e-5
+# relative by step 3, 2.5e-3 at 1e-3; net2net intermedia at 1e-4 3.1e-6,
+# source at 1e-5 3.3e-7 but 1.2e-3 at 1e-4); MTCNN's Adam steps move each
+# element by ~lr whatever its gradient, so its steps are held by gradients before the first update,
+# losses, change norms and the share of elements whose change has another
+# sign.  Then the timed steps at each CLI's default batch.
+FAMILY_STEPS = 3
+FACEBOX_TRAIN_GOLDEN = GOLDEN_DIR / "train_facebox.npz"
+FACEBOX_TRAIN_SEED, FACEBOX_TRAIN_GOLDEN_BATCH, FACEBOX_TRAIN_LR = 0, 2, 1e-4
+FACEBOX_TRAIN_BATCH = 16  # scripts/train_facebox.py's default
+NET2NET_TRAIN_GOLDEN = GOLDEN_DIR / "train_net2net.npz"
+NET2NET_STUDENT = REPO / "net_weight" / "try1_distilled_mini.npz"
+NET2NET_MODES = ("intermedia", "source", "overall")
+NET2NET_TRAIN_SEED, NET2NET_TRAIN_GOLDEN_BATCH = 0, 2
+# by mode: intermedia's loss moves 1.3e-4 in 3 steps at 1e-5, too little for
+# its check; at 1e-4 source mode's float32 steps part from float64's
+NET2NET_TRAIN_LR = {"intermedia": 1e-4, "source": 1e-5, "overall": 1e-5}
+NET2NET_TRAIN_BATCH = 8  # scripts/train_net2net.py's default
+MTCNN_TRAIN_GOLDEN = GOLDEN_DIR / "train_mtcnn.npz"
+MTCNN_STAGES = ("pnet", "rnet", "onet")
+MTCNN_TRAIN_SEED, MTCNN_TRAIN_WEIGHTS_SEED, MTCNN_TRAIN_GOLDEN_BATCH = 0, 2, 64
+MTCNN_TRAIN_LR = 1e-3
+MTCNN_TRAIN_BATCH = 512  # scripts/train_mtcnn.py's default
+# The golden checks' tolerances on the card (cuDNN with TF32 off against
+# fdt's XLA:CPU steps): loss parts relative, by step; each parameter leaf's
+# change norm within NORM_RTOL of its own plus NORM_ATOL of the largest
+# leaf's (the latter for net2net's BatchNorm biases that reach the loss only
+# through 1×1 convs into train-mode BatchNorms, which take away any shift of
+# a channel: their true gradient is 0 and their change float noise, 1e-9 to
+# 1e-8 of the largest leaf's, 30-50% off their own on the CPU); batch_stats
+# samples relative;
+# MTCNN's gradient norms before the first update within "grad" of their own,
+# and the share of elements whose change has another sign.  The CPU's
+# errors beside them are in tests/test_torch_*_golden.py, the card's in
+# PERF.md (Findings).
+FAMILY_TOL = {
+    "facebox": {"loss": (5e-5, 2e-4, 1e-3), "norm_rtol": 5e-2, "norm_atol": 5e-3,
+                "stats": 2e-2},
+    "net2net": {"loss": (1e-4, 5e-4, 2e-3), "norm_rtol": 5e-2, "norm_atol": 5e-3,
+                "stats": 5e-2},
+    "mtcnn": {"loss": (1e-5, 2e-4, 1e-3), "norm_rtol": 1e-3, "norm_atol": 1e-4,
+              "grad": 1e-3, "sign_share": 1e-3},
+}
+FAMILY_METRICS = {"facebox": ("loss", "loc", "conf"),
+                  "mtcnn": ("loss", "cls", "box", "landmark", "accuracy")}
+
+
 def train_batch(seed: int, batch: int, size: int = SIZE):
     """A seeded training batch as the driver hands it to the trainer:
     mean-subtracted noise images [B, S, S, 3] rounded to float16 (the
@@ -386,6 +458,183 @@ def train_leaf_summary(before: dict, after: dict) -> dict:
         out["sample_index"].append(idx)
         out["sample_value"].append(a[idx])
     return {k: np.asarray(v) for k, v in out.items()}
+
+
+def facebox_train_batch(seed: int, batch: int, size: int = 1024):
+    """A seeded FaceBoxes batch: raw 0-255 BGR noise [B, S, S, 3] float32
+    (the trainer divides by 255) and 1-4 faces an image, padded, labels 1."""
+    from fdt_torch.train.loops import pad_targets
+    rng = np.random.RandomState(seed)
+    images = rng.randint(0, 256, (batch, size, size, 3)).astype(np.float32)
+    targets = []
+    for _ in range(batch):
+        n = rng.randint(1, 5)
+        wh = 0.03 + rng.rand(n, 2) * 0.25
+        xy = rng.rand(n, 2) * (1 - wh)
+        targets.append(np.hstack([xy, xy + wh, np.ones((n, 1))]).astype(np.float32))
+    gt_boxes, _, gt_valid = pad_targets(targets)
+    return images, gt_boxes, gt_valid.astype(np.int32), gt_valid
+
+
+def net2net_batch(seed: int, batch: int, size: int = SIZE):
+    """A seeded net2net batch: the prefetcher's mean-subtracted float16
+    images [B, S, S, 3] (train_batch's)."""
+    return (train_batch(seed, batch, size)[0],)
+
+
+def mtcnn_train_batch(stage: str, seed: int, batch: int):
+    """A seeded batch of a stage's patches: uint8 BGR [B, S, S, 3], labels
+    1, 0, -1, -2 in turns (every mask non-empty), box offsets, landmarks."""
+    size = {"pnet": 12, "rnet": 24, "onet": 48}[stage]
+    rng = np.random.RandomState(seed)
+    images = rng.randint(0, 256, (batch, size, size, 3)).astype(np.uint8)
+    labels = np.resize(np.array([1, 0, -1, -2], np.float32), batch)
+    bbox = (rng.randn(batch, 4) * 0.1).astype(np.float32)
+    landmarks = rng.rand(batch, 10).astype(np.float32)
+    return images, labels, bbox, landmarks
+
+
+def family_batch(family: str, key: str, seed: int, batch: int):
+    """The batch of a family's golden (key: the net2net mode or MTCNN stage)."""
+    if family == "facebox":
+        return facebox_train_batch(seed, batch)
+    if family == "net2net":
+        return net2net_batch(seed, batch)
+    return mtcnn_train_batch(key, seed, batch)
+
+
+def family_step(family: str, trainer, batch, lr: float) -> list[float]:
+    """One train step of a family's trainer → its metrics as floats (net2net:
+    the loss, then its parts)."""
+    if family == "facebox":
+        m = trainer.train_step(*batch, lr)
+        return [float(m[k]) for k in FAMILY_METRICS[family]]
+    if family == "net2net":
+        m = trainer.train_step(*batch, lr)
+        return [float(m["loss"])] + m["parts"].cpu().double().tolist()
+    m = trainer.train_step(*batch)  # Adam at the trainer's base_lr
+    return [float(m[k]) for k in FAMILY_METRICS[family]]
+
+
+def batch_sha256(batch) -> str:
+    h = hashlib.sha256()
+    for a in batch:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def change_signs(before: dict, after: dict) -> np.ndarray:
+    """The sign of every parameter's change over a run, leaves in sorted
+    order, as one int8 array of -1, 0 and 1."""
+    return np.concatenate([np.sign(np.asarray(after[k], np.float64)
+                                   - np.asarray(before[k], np.float64)).ravel()
+                           for k in sorted(after) if k.startswith("params/")]).astype(np.int8)
+
+
+def pack_signs(signs: np.ndarray) -> dict:
+    return {"sign_pos": np.packbits(signs > 0), "sign_neg": np.packbits(signs < 0),
+            "sign_count": np.int64(signs.size)}
+
+
+def unpack_signs(g: dict, prefix: str = "") -> np.ndarray:
+    n = int(g[prefix + "sign_count"])
+    pos = np.unpackbits(g[prefix + "sign_pos"])[:n].astype(np.int8)
+    return pos - np.unpackbits(g[prefix + "sign_neg"])[:n].astype(np.int8)
+
+
+def mtcnn_grad_norms(trainer, batch) -> dict:
+    """Per parameter leaf (flax path), the L2 norm of the stage loss's
+    gradient before any update; the trainer's gradients are cleared after."""
+    from fdt_torch.infer.pyramidbox import tf32_for
+    from fdt_torch.models.loader import flax_arrays
+    trainer.model.train()
+    with tf32_for(trainer.precision):  # the trainer's precision, as train_step takes it
+        loss, _ = trainer._loss(*batch)
+        loss.backward()
+    grads = flax_arrays(trainer.model, {n: p.grad for n, p in trainer.model.named_parameters()})
+    trainer.optimizer.zero_grad(set_to_none=True)
+    return {"/".join(k): float(np.sqrt((v.astype(np.float64) ** 2).sum()))
+            for k, v in grads.items()}
+
+
+def check_leaf_summary(got: dict, g: dict, prefix: str, tol: dict, what: str) -> dict:
+    """A train run's leaf summary (train_leaf_summary) against the golden's
+    under `prefix`: each parameter leaf's change norm within tol["norm_rtol"]
+    of its own plus tol["norm_atol"] of the largest, and the batch_stats
+    samples within tol["stats"] relative.  Returns the errors."""
+    names = g[prefix + "names"]
+    if list(got["names"]) != list(names):
+        raise AssertionError(f"{what}: the leaves differ from the golden's")
+    params = np.array([n.startswith("params/") for n in names])
+    want = g[prefix + "change_norm"][params]
+    scale = want.max()
+    norm_err = np.abs(got["change_norm"][params] - want)
+    bad = norm_err > tol["norm_rtol"] * want + tol["norm_atol"] * scale
+    if bad.any():
+        raise AssertionError(f"{what}: {int(bad.sum())} leaves' change norms off: "
+                             f"{names[params][bad][:5].tolist()}")
+    rel = norm_err / np.maximum(want, 1e-30)
+    worst = np.argsort(-rel)[:3]
+    out = {"norm_err_of_scale": float(norm_err.max() / scale),
+           "norm_rel_err_max": float(rel.max()),
+           # the three leaves farthest off their own norm: name, that error,
+           # and the leaf's norm as a share of the largest leaf's
+           "worst_rel_leaves": [f"{n}:{rel[i]:.3g}:{want[i] / scale:.3g}"
+                                for n, i in zip(names[params][worst], worst)]}
+    if (~params).any():
+        want_s = g[prefix + "sample_value"][~params]
+        stats_err = np.abs(got["sample_value"][~params] - want_s) / np.maximum(
+            np.abs(want_s), 1e-6)
+        if stats_err.max() > tol["stats"]:
+            raise AssertionError(f"{what}: batch_stats samples off by {stats_err.max():.3g}")
+        out["stats_rel_err"] = float(stats_err.max())
+    return out
+
+
+def check_family_golden(family: str, key: str, trainer, g: dict) -> dict:
+    """FAMILY_STEPS steps of a family's trainer (float32, "highest", from the
+    golden's starting variables) on the golden's batch, held to the golden
+    (entries under "<key>/" for net2net's modes and MTCNN's stages) by
+    FAMILY_TOL.  Returns the errors."""
+    from fdt_torch.models.loader import flat_variables, to_jax_variables
+    prefix = "" if family == "facebox" else f"{key}/"
+    tol = FAMILY_TOL[family]
+    what = f"train_families {family}" + (f" {key}" if prefix else "")
+    batch = family_batch(family, key, int(g["seed"]), int(g["batch"]))
+    if batch_sha256(batch) != str(g[prefix + "batch_sha256"]):
+        raise AssertionError(f"{what}: the seeded batch differs from the golden's")
+    before = flat_variables(to_jax_variables(trainer.model))
+    out = {}
+    if family == "mtcnn":
+        grads = mtcnn_grad_norms(trainer, batch)
+        want = g[prefix + "grad_norm"]
+        got = np.array([grads[n] for n in g[prefix + "names"]])
+        diff = np.abs(got - want)
+        bad = diff > tol["grad"] * want
+        if bad.any():
+            worst = int(np.argmax(diff / np.maximum(want, 1e-30)))
+            raise AssertionError(f"{what}: {int(bad.sum())} gradient norms off, the worst "
+                                 f"{g[prefix + 'names'][worst]} ({got[worst]:.6g} against "
+                                 f"{want[worst]:.6g}; largest leaf {want.max():.6g})")
+        out["grad_rel_err_max"] = float((diff / np.maximum(want, 1e-30)).max())
+        out["grad_err_of_scale"] = float(diff.max() / want.max())
+    lr = float(g[prefix + "lr"] if prefix + "lr" in g else g["lr"])
+    losses = np.array([family_step(family, trainer, batch, lr) for _ in range(int(g["steps"]))])
+    want = g[prefix + "losses"]
+    loss_err = np.abs(losses - want) / np.maximum(np.abs(want), 1e-12)
+    for step, rtol in enumerate(tol["loss"]):
+        if loss_err[step].max() > rtol:
+            raise AssertionError(f"{what}: step {step + 1} losses {losses[step]} against "
+                                 f"{want[step]} (rtol {rtol})")
+    out["loss_rel_err"] = loss_err.max(axis=1).tolist()
+    after = flat_variables(to_jax_variables(trainer.model))
+    out.update(check_leaf_summary(train_leaf_summary(before, after), g, prefix, tol, what))
+    if family == "mtcnn":
+        flipped = float(np.mean(change_signs(before, after) != unpack_signs(g, prefix)))
+        if flipped > tol["sign_share"]:
+            raise AssertionError(f"{what}: {flipped:.3g} of the changes have another sign")
+        out["sign_flipped_share"] = flipped
+    return out
 
 
 # The video paths: frames of the tracking phase's pan written as PNGs and
@@ -3855,17 +4104,15 @@ def check_train_golden(trainer, g) -> dict:
     float32, "highest") on the golden's batch, held to fdt's golden: loss
     parts by TRAIN_LOSS_RTOL, each parameter leaf's change norm within
     TRAIN_NORM_RTOL of its own plus TRAIN_NORM_ATOL of the largest, and the
-    batch_stats samples within TRAIN_STATS_RTOL.  Returns the errors."""
+    batch_stats samples within TRAIN_STATS_RTOL (check_leaf_summary).
+    Returns the errors."""
     from fdt_torch.models.loader import flat_variables, to_jax_variables
 
     def leaves(model):
         return flat_variables(to_jax_variables(model))
 
     batch = train_batch(int(g["seed"]), int(g["batch"]), int(g["size"]))
-    h = hashlib.sha256()
-    for a in batch:
-        h.update(np.ascontiguousarray(a).tobytes())
-    if h.hexdigest() != str(g["batch_sha256"]):
+    if batch_sha256(batch) != str(g["batch_sha256"]):
         raise AssertionError("train: the seeded batch differs from the golden's")
     before = leaves(trainer.model)
     losses = []
@@ -3878,25 +4125,10 @@ def check_train_golden(trainer, g) -> dict:
         if loss_err[step].max() > rtol:
             raise AssertionError(f"train golden: step {step + 1} losses {losses[step]} against "
                                  f"{g['losses'][step]} (rtol {rtol})")
-    got = train_leaf_summary(before, leaves(trainer.model))
-    if list(got["names"]) != list(g["names"]):
-        raise AssertionError("train golden: the leaves differ from the golden's")
-    params = np.array([n.startswith("params/") for n in got["names"]])
-    scale = g["change_norm"][params].max()
-    norm_err = np.abs(got["change_norm"] - g["change_norm"])[params]
-    bad = norm_err > TRAIN_NORM_RTOL * g["change_norm"][params] + TRAIN_NORM_ATOL * scale
-    if bad.any():
-        worst = got["names"][params][bad][:5].tolist()
-        raise AssertionError(f"train golden: {int(bad.sum())} leaves' change norms off: {worst}")
-    want = g["sample_value"][~params]
-    stats_err = np.abs(got["sample_value"][~params] - want) / np.maximum(np.abs(want), 1e-6)
-    if stats_err.max() > TRAIN_STATS_RTOL:
-        raise AssertionError(f"train golden: batch_stats samples off by {stats_err.max():.3g}")
-    return {"loss_rel_err": loss_err.max(axis=1).tolist(),
-            "norm_rel_err_max": float((norm_err / np.maximum(g["change_norm"][params],
-                                                             1e-30)).max()),
-            "norm_err_of_scale": float(norm_err.max() / scale),
-            "stats_rel_err": float(stats_err.max())}
+    tol = {"norm_rtol": TRAIN_NORM_RTOL, "norm_atol": TRAIN_NORM_ATOL, "stats": TRAIN_STATS_RTOL}
+    errs = check_leaf_summary(train_leaf_summary(before, leaves(trainer.model)), g, "", tol,
+                              "train golden")
+    return {"loss_rel_err": loss_err.max(axis=1).tolist(), **errs}
 
 
 def _train_step_ms(trainer, batch, lr: float, steps: int = 3) -> list[float]:
@@ -4137,6 +4369,257 @@ def phase_train(device) -> int:
     return k1
 
 
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    lines = smi.stdout.strip().splitlines()
+    return lines[0] if lines else f"nvidia-smi failed: {smi.stderr.strip()}"
+
+
+def write_mtcnn_set(directory: pathlib.Path, n: int = 8, seed: int = 11) -> pathlib.Path:
+    """n seeded 240×320 photo_like PNGs, each with 1-2 drawn faces (a skin
+    block of 48-90 px with dark eyes and a mouth), and their anno file in the
+    MTCNN factory's format (`<path> x1 y1 x2 y2 ...`, inclusive corners);
+    returns its path."""
+    from fdt_torch.data.image_io import imwrite
+    rng = np.random.RandomState(seed)
+    lines = []
+    for i in range(n):
+        img = photo_like(240, 320, seed + i).astype(np.int32)
+        boxes = []
+        for j in range(1 + i % 2):
+            side = int(rng.randint(48, 91))
+            x = int(rng.randint(0, 320 - side)) if j == 0 else (x + side + 8) % (320 - side)
+            y = int(rng.randint(0, 240 - side))
+            face = img[y:y + side, x:x + side]
+            face[:] = np.array([110, 150, 205]) + rng.randint(-8, 9, face.shape)
+            e, r = side // 4, max(side // 10, 2)
+            for ex in (e, side - e):
+                face[side * 2 // 5 - r:side * 2 // 5 + r, ex - r:ex + r] = 30
+            face[side * 3 // 4 - r // 2:side * 3 // 4 + r // 2 + 1, side // 3:side * 2 // 3] = 60
+            boxes.append((x, y, x + side - 1, y + side - 1))
+        path = directory / f"mtcnn_{i}.png"
+        imwrite(str(path), np.clip(img, 0, 255).astype(np.uint8))
+        lines.append(f"{path} " + " ".join(f"{v}" for b in boxes for v in b))
+    anno = directory / "mtcnn_anno.txt"
+    anno.write_text("\n".join(lines) + "\n")
+    return anno
+
+
+def mtcnn_chain(directory: pathlib.Path, anno: pathlib.Path, device: str,
+                batch_size: int = 16) -> dict:
+    """The MTCNN training chain through the CLIs, each run's main in this
+    process: gen_mtcnn_data pnet, assemble, train_mtcnn pnet (one epoch),
+    gen_mtcnn_data rnet with that PNet, assemble, train_mtcnn rnet (one
+    epoch).  Returns the patch counts by stage and the two checkpoints."""
+    import importlib
+
+    def run(module, argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            importlib.import_module(f"fdt_torch.cli.{module}").main(argv)
+        return out.getvalue()
+
+    out: dict = {}
+    ckpt = {}
+    for stage, size in (("pnet", 12), ("rnet", 24)):
+        data = directory / f"data_{size}"
+        gen = [stage, "--anno", str(anno), "--out", str(data), "--device", device]
+        if stage == "rnet":
+            gen += ["--pnet_ckpt", ckpt["pnet"]]
+        counts = run("gen_mtcnn_data", gen).strip().splitlines()[-1]
+        out[stage] = dict(zip(("pos", "neg", "part"), map(int, counts.split()[1::2])))
+        lists = [str(data / "anno_store" / f"{k}_{size}.txt") for k in ("pos", "neg", "part")]
+        imglist = directory / f"imglist_{size}.txt"
+        run("gen_mtcnn_data", ["assemble", "--out", str(imglist), "--files", *lists])
+        store = directory / "store"
+        run("train_mtcnn", [stage, "--anno", str(imglist), "--epochs", "1",
+                            "--batch_size", str(batch_size), "--store", str(store),
+                            "--device", device])
+        ckpt[stage] = str(store / f"{stage}_epoch_1")
+        if not (pathlib.Path(ckpt[stage]) / "variables.npz").exists():
+            raise AssertionError(f"mtcnn chain: {ckpt[stage]} was not written")
+    out["checkpoints"] = ckpt
+    return out
+
+
+def _step_times(fn, steps: int = 7) -> list[float]:
+    """ms of single steps by CUDA events after a warm-up of 1 s, sorted."""
+    _warm(fn, 1.0)
+    return sorted(_cuda_ms(fn, 1) for _ in range(steps))
+
+
+def _timed_step(name: str, fn, batch: int, size: int, card: str) -> dict:
+    """A family's full-width step: peak memory of its first call, the median
+    of single steps, images/s, and a torch.profiler split (device ms, idle
+    share of the wall time); one [train_families] line."""
+    gb = _peak_gb(fn)
+    ms = _step_times(fn)
+    split = _time_split(fn, iters=3)
+    med = float(np.median(ms))
+    out = {"ms_median": med, "ms_min": ms[0], "ms_max": ms[-1],
+           "images_per_s": batch / med * 1e3, "peak_gb": gb,
+           "device_ms": split["device_ms"], "wall_ms": split["wall_ms"],
+           "idle_pct": split["idle_pct"]}
+    print(f"[train_families] step {name} batch={batch} size={size} "
+          f"ms_median={med:.3f} ms={[round(m, 3) for m in ms]} "
+          f"images_per_s={out['images_per_s']:.2f} peak_gb={gb:.3f} "
+          f"profiled_wall_ms={split['wall_ms']:.3f} device_ms={split['device_ms']:.3f} "
+          f"idle_pct={None if split['idle_pct'] is None else round(split['idle_pct'], 2)} "
+          f"card=\"{card}\"", flush=True)
+    return out
+
+
+def phase_train_families(device) -> int:
+    """FaceBoxes, net2net and MTCNN training on the card: each family's steps
+    held to fdt's golden (net2net every mode, MTCNN every stage); the timed
+    full-width steps (FaceBoxes 1024² batch 16, net2net intermedia 640²
+    batch 8, each MTCNN stage batch 512: median ms by CUDA events, images/s,
+    peak memory, device ms and idle share); the CLIs on seeded image files:
+    train_facebox, resumed, and a FaceBoxes detect of its weights (K1);
+    train_net2net; the MTCNN chain (mtcnn_chain), then the device cascade on
+    the trained nets (K1).  Returns K1's launches on those two detects."""
+    import dataclasses as dc
+    import tempfile
+
+    from fdt_torch.config import FACEBOX
+    from fdt_torch.infer import FaceBoxDetector, MTCNNDeviceCascade
+    from fdt_torch.models import FaceBox, ONet, PNet, RNet, build_pyramidbox, load_pyramidbox
+    from fdt_torch.models import from_jax_variables
+    from fdt_torch.ops import nms as nms_op
+    from fdt_torch.train.checkpoint import load_model_weights
+    from fdt_torch.train.facebox_train import FaceBoxTrainer
+    from fdt_torch.train.loops import xavier_init
+    from fdt_torch.train.mtcnn_train import MTCNNStageTrainer, lecun_init
+    from fdt_torch.train.net2net import Net2NetTrainer
+
+    card = card_line()
+    t0 = time.perf_counter()
+    errs = {}
+
+    def report(key, e):
+        errs[key] = e
+        print(f"[train_families] golden {key} " + json.dumps(
+            {k: ([x if isinstance(x, str) else float(f"{x:.3g}") for x in v]
+                 if isinstance(v, list) else float(f"{v:.3g}")) for k, v in e.items()}),
+            flush=True)
+
+    with _tf32(True):  # the global flags on: precision="highest" turns TF32 off itself
+        g = dict(np.load(FACEBOX_TRAIN_GOLDEN))
+        model = FaceBox()
+        model.load_state_dict(from_jax_variables(seeded_variables(model, FACEBOX_WEIGHTS_SEED)))
+        report("facebox", check_family_golden(
+            "facebox", "", FaceBoxTrainer(model, precision="highest", device=device), g))
+        g = dict(np.load(NET2NET_TRAIN_GOLDEN))
+        teacher = load_pyramidbox(str(WEIGHTS))
+        for mode in NET2NET_MODES:
+            student = load_pyramidbox(str(NET2NET_STUDENT), "try1")
+            report(mode, check_family_golden("net2net", mode, Net2NetTrainer(
+                student, teacher, mode, precision="highest", device=device), g))
+        g = dict(np.load(MTCNN_TRAIN_GOLDEN))
+        for stage, net in zip(MTCNN_STAGES, (PNet, RNet, ONet)):
+            model = net()
+            model.load_state_dict(from_jax_variables(
+                seeded_variables(model, MTCNN_TRAIN_WEIGHTS_SEED), model.flatten_chw))
+            report(stage, check_family_golden("mtcnn", stage, MTCNNStageTrainer(
+                stage, MTCNN_TRAIN_LR, "highest", model=model, device=device), g))
+    _phase("train_families_golden", t0, checks=len(errs),
+           loss_rel_err_max=f"{max(max(e['loss_rel_err']) for e in errs.values()):.3g}")
+
+    t0 = time.perf_counter()
+    timed = {}
+    fb = FaceBoxTrainer(xavier_init(FaceBox(), 0), device=device)  # "default": TF32, the CLI's
+    batch = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in
+             facebox_train_batch(FACEBOX_TRAIN_SEED + 1, FACEBOX_TRAIN_BATCH)]
+    timed["facebox"] = _timed_step("facebox", lambda: fb.train_step(*batch, FACEBOX_TRAIN_LR),
+                                   FACEBOX_TRAIN_BATCH, FACEBOX.input_size, card)
+    del fb, batch
+    n2n = Net2NetTrainer(xavier_init(build_pyramidbox("try1"), 0), teacher, "intermedia",
+                         device=device)
+    images = torch.from_numpy(net2net_batch(NET2NET_TRAIN_SEED + 1, NET2NET_TRAIN_BATCH)[0]
+                              ).to(device)
+    lr = NET2NET_TRAIN_LR["intermedia"]
+    timed["net2net"] = _timed_step("net2net_intermedia", lambda: n2n.train_step(images, lr),
+                                   NET2NET_TRAIN_BATCH, SIZE, card)
+    del n2n, images, teacher
+    for stage in MTCNN_STAGES:
+        trainer = MTCNNStageTrainer(stage, device=device)
+        staged = [torch.from_numpy(a).to(device) for a in
+                  mtcnn_train_batch(stage, MTCNN_TRAIN_SEED + 1, MTCNN_TRAIN_BATCH)]
+        timed[stage] = _timed_step(f"mtcnn_{stage}", lambda: trainer.train_step(*staged),
+                                   MTCNN_TRAIN_BATCH, trainer.size, card)
+    torch.cuda.empty_cache()
+    _phase("train_families_steps", t0, **{f"{k}_ms": f"{v['ms_median']:.3f}"
+                                          for k, v in timed.items()})
+
+    t0 = time.perf_counter()
+    dev = f"cuda:{device.index or 0}"
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        anno = write_train_set(tmp)
+        from fdt_torch.cli import train_facebox, train_net2net
+        fb_out = tmp / "facebox"
+        common = ["--batch_size", "2", "--save_point", "2", "--annoPath", str(anno),
+                  "--save_folder", str(fb_out), "--device", dev]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            train_facebox.main(common + ["--iter", "4"])
+            train_facebox.main(common + ["--iter", "6", "--resume"])
+        if f"resumed from {fb_out / 'facebox_4'}" not in buf.getvalue():
+            raise AssertionError(f"train_facebox: no resume from facebox_4: {buf.getvalue()}")
+        with np.load(fb_out / "facebox_6" / "opt_state.npz") as z:
+            if int(z["step"]) != 6:
+                raise AssertionError(f"train_facebox: step {int(z['step'])} after the resume")
+        det = FaceBoxDetector(load_model_weights(str(fb_out / "facebox_6"), FaceBox()),
+                              cfg=dc.replace(FACEBOX, conf_thresh=0.01), device=device)
+        frame = torch.from_numpy(photo_like(1024, 1024, 41)[None]).to(device)
+        det.detect_device(frame)  # first use of the shape
+        nms_op.launches.reset()
+        boxes, scores, count = det.detect_device(frame)  # the trained weights' detect
+        torch.cuda.synchronize()
+        fb_k1 = nms_op.launches.count
+        if fb_k1 != 1 or not torch.isfinite(boxes).all():
+            raise AssertionError(f"train_facebox: the trained detector made {fb_k1} K1 calls")
+        n2n_out = tmp / "net2net"
+        with contextlib.redirect_stdout(io.StringIO()):
+            train_net2net.main(["--iter", "3", "--batch_size", "2", "--save_point", "2",
+                                "--annoPath", str(anno), "--save_folder", str(n2n_out),
+                                "--teacher_weights", str(WEIGHTS), "--device", dev])
+        for f in ("intermedia_net_2/variables.npz", "intermedia_loss_2.npy",
+                  "intermedia_net_final_3/opt_state.npz"):
+            if not (n2n_out / f).exists():
+                raise AssertionError(f"train_net2net: {f} was not written")
+        losses = np.load(n2n_out / "intermedia_loss_2.npy")
+        if not (np.isfinite(losses).all() and (losses[:2] > 0).all()):
+            raise AssertionError(f"train_net2net: losses {losses[:3]}")
+        t_fb = time.perf_counter() - t0
+
+        t1 = time.perf_counter()
+        mtcnn_anno = write_mtcnn_set(tmp)
+        chain = mtcnn_chain(tmp / "mtcnn", mtcnn_anno, dev)
+        if not chain["rnet"]["neg"] + chain["rnet"]["pos"] + chain["rnet"]["part"]:
+            raise AssertionError(f"mtcnn chain: the trained PNet mined nothing: {chain}")
+        nets = (load_model_weights(chain["checkpoints"]["pnet"], PNet()),
+                load_model_weights(chain["checkpoints"]["rnet"], RNet()), lecun_init(ONet()))
+        cascade = MTCNNDeviceCascade(*nets, device=device)
+        from fdt_torch.data.image_io import imread
+        frames = np.stack([imread(ln.split()[0]) for ln in
+                           mtcnn_anno.read_text().splitlines()[:4]])
+        cascade.detect_batch(frames)  # first use of the shapes
+        nms_op.launches.reset()
+        _, _, mt_count, _ = cascade.detect_batch(frames)  # the trained nets' cascade
+        mt_k1 = nms_op.launches.count
+        if not mt_k1:
+            raise AssertionError("mtcnn chain: the device cascade launched no K1")
+    _phase("train_families_cli", t0, facebox_net2net_s=f"{t_fb:.3f}",
+           mtcnn_chain_s=f"{time.perf_counter() - t1:.3f}", facebox_k1=fb_k1,
+           facebox_detections=int(count[0]), mtcnn_patches=json.dumps(
+               {k: v for k, v in chain.items() if k != "checkpoints"}).replace(" ", ""),
+           mtcnn_k1=mt_k1, mtcnn_tier=cascade.last_tier, mtcnn_faces=mt_count.tolist())
+    return fb_k1 + mt_k1
+
+
 @contextlib.contextmanager
 def warnings_kept():
     """Collect the warnings of the body (the cascade's saturation notes)."""
@@ -4201,6 +4684,7 @@ def main() -> int:
     phase_video_render(frames, tracks)
     demo_launches = phase_video_demo(video_det, floor, facebox_det, device, frames)
     train_launches = phase_train(device)
+    families_launches = phase_train_families(device)
 
     # PyTorch has no NMS call (and torchvision is not installed) and no
     # greedy-association call: no library_ms.  K4's wgmma variant and K5 at
@@ -4231,7 +4715,7 @@ def main() -> int:
         "replaces": "fdt/ops/pallas_nms.py:69",
         "launches": (launches + int8_launches["k1"] + mtcnn_launches + track_k1_launches
                      + http_launches + eval_launches + host_launches + video_k1
-                     + demo_launches + train_launches),
+                     + demo_launches + train_launches + families_launches),
         "max_abs_err": max(k1["max_abs_err"], boxes_err, mtcnn_err, track_k1_err,
                            video_k1_err),
         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],

@@ -1,6 +1,7 @@
-"""Image decoding in place of cv2.imdecode / cv2.imread (IMREAD_COLOR).
+"""Image decoding in place of cv2.imdecode / cv2.imread (IMREAD_COLOR), and
+the writer in place of cv2.imwrite.
 
-Every function returns BGR uint8 [H, W, 3], as cv2 does, or None where cv2
+Every decoder returns BGR uint8 [H, W, 3], as cv2 does, or None where cv2
 returns None (bytes that are no image, a file that is missing).
 
 Pillow decodes every format, imported where it decodes; without Pillow an
@@ -58,6 +59,20 @@ def imread(path) -> np.ndarray | None:
     except OSError:
         return None
     return imdecode(data)
+
+
+def imwrite(path, image: np.ndarray) -> bool:
+    """cv2.imwrite(path, image) of a BGR uint8 [H, W, 3] image, through
+    Pillow: a .jpg / .jpeg at quality 95 (cv2's default; Pillow's encoder is
+    not cv2's libjpeg build, so the bytes and the decoded pixels differ a
+    little), any other extension in Pillow's default for it.  Returns True."""
+    from PIL import Image
+    rgb = Image.fromarray(np.ascontiguousarray(np.asarray(image, np.uint8)[:, :, ::-1]))
+    if str(path).lower().endswith((".jpg", ".jpeg")):
+        rgb.save(path, quality=95)
+    else:
+        rgb.save(path)
+    return True
 
 
 def image_size(path) -> tuple[int, int]:

@@ -101,7 +101,7 @@ def crelu(x: torch.Tensor) -> torch.Tensor:
     return F.relu(torch.cat([x, -x], dim=1))
 
 
-class ConvBNReLU(nn.Sequential):
+class ConvBNReLU(NestedSequential):
     """Sequential(Conv, BatchNorm, ReLU): children '0'/'1'/'2', as fdt's
     ConvBNReLU and the reference's conv_bn_relu."""
 
@@ -179,12 +179,15 @@ def add_pyramid_heads(model: nn.Module, n_sources: int, channels: int) -> None:
     model.head_conf = nn.ModuleList([conv(channels, 2, 3, 1, 1) for _ in range(n_sources - 1)])
 
 
-def face_outputs(model: nn.Module, sources, heads: bool = False) -> dict:
+def face_outputs(model: nn.Module, sources, heads: bool = False,
+                 features: list | None = None) -> dict:
     """The face heads of `model` over its source maps (max-in-out applied),
     reshaped channels-last into prior-major [B, P, ·] float32 tensors, so that
     prior order matches fdt's NHWC reshape, and the source shapes.  With
     `heads` (training) also the head-supervision branch over sources[1:]:
-    head_loc [B, Ph, 4] and head_conf [B, Ph, 2], float32."""
+    head_loc [B, Ph, 4] and head_conf [B, Ph, 2], float32.  With `features`
+    (net2net distillation's taps, fdt's return_features) also "features",
+    that list, and "sources", the source maps, both NCHW."""
     b = sources[0].shape[0]
     locs, confs = [], []
     for i, s in enumerate(sources):
@@ -203,4 +206,7 @@ def face_outputs(model: nn.Module, sources, heads: bool = False) -> dict:
         out["head_conf"] = torch.cat([
             model.head_conf[i](s).permute(0, 2, 3, 1).reshape(b, -1, 2)
             for i, s in enumerate(sources[1:])], 1).float()
+    if features is not None:
+        out["features"] = list(features)
+        out["sources"] = list(sources)
     return out

@@ -86,16 +86,21 @@ def from_jax_variables(variables, flatten_chw: dict | None = None
 
 def flax_paths(model: nn.Module) -> dict[str, tuple[str, ...]]:
     """Torch state-dict key → fdt's flax path (collection first), for every
-    parameter and running statistic of a model of convolutions and
-    BatchNorms (the PyramidBox family, FaceBoxes); num_batches_tracked has
-    none.
+    parameter and running statistic of a model of convolutions, BatchNorms,
+    Linears and PReLUs (the PyramidBox family, FaceBoxes, MTCNN's nets);
+    num_batches_tracked has none.
 
     fdt nests a flax module under its parent where the port has a module
     (Bottleneck, SSHContext, InvertedResidual, ...) and joins a Sequential's
     or ModuleList's index to its name with `__` ("downsample__0",
-    "features__1", "face_conf__0"), except in a NestedSequential, whose
-    numbered children are flax modules of their own ("layer1/0")."""
+    "features__1", "face_conf__0", "pre_layer__1"), except in a
+    NestedSequential, whose numbered children are flax modules of their own
+    ("layer1/0")."""
     out: dict[str, tuple[str, ...]] = {}
+    leaves = {nn.Conv2d: {"weight": "kernel", "bias": "bias"},
+              nn.Linear: {"weight": "kernel", "bias": "bias"},
+              nn.BatchNorm2d: {"weight": "scale", "bias": "bias"},
+              nn.PReLU: {"weight": "negative_slope"}}
 
     def walk(module, prefix, path):
         for name, child in module.named_children():
@@ -103,14 +108,13 @@ def flax_paths(model: nn.Module) -> dict[str, tuple[str, ...]]:
                       and not isinstance(module, NestedSequential) and path)
             child_path = path[:-1] + (f"{path[-1]}__{name}",) if joined else path + (name,)
             walk(child, f"{prefix}{name}.", child_path)
-        is_bn = isinstance(module, nn.BatchNorm2d)
+        kind = next((leaves[t] for t in leaves if isinstance(module, t)), None)
         for name, _ in module.named_parameters(recurse=False):
-            if not (is_bn or isinstance(module, nn.Conv2d)):
-                raise ValueError(f"{prefix}{name}: only convolutions and BatchNorm "
-                                 f"carry back to flax, not {type(module).__name__}")
-            leaf = {"weight": "scale" if is_bn else "kernel", "bias": "bias"}[name]
-            out[f"{prefix}{name}"] = ("params",) + path + (leaf,)
-        if is_bn:
+            if kind is None:
+                raise ValueError(f"{prefix}{name}: only convolutions, Linears, PReLUs and "
+                                 f"BatchNorm carry back to flax, not {type(module).__name__}")
+            out[f"{prefix}{name}"] = ("params",) + path + (kind[name],)
+        if isinstance(module, nn.BatchNorm2d):
             out[f"{prefix}running_mean"] = ("batch_stats",) + path + ("mean",)
             out[f"{prefix}running_var"] = ("batch_stats",) + path + ("var",)
 
@@ -118,28 +122,46 @@ def flax_paths(model: nn.Module) -> dict[str, tuple[str, ...]]:
     return out
 
 
-def to_flax_array(value: torch.Tensor) -> np.ndarray:
-    """One torch tensor → its flax leaf (float32 numpy, a copy): conv
-    kernels [O,I,kH,kW] → [kH,kW,I,O], the inverse of from_jax_variables."""
+def to_flax_array(value: torch.Tensor, path: tuple[str, ...] = (),
+                  chw: tuple[int, int, int] | None = None) -> np.ndarray:
+    """One torch tensor → its flax leaf (float32 numpy, a copy), the inverse
+    of from_jax_variables: conv kernels [O,I,kH,kW] → [kH,kW,I,O], Linear
+    weights [out,in] → [in,out] (a Linear over a flattened (C, H, W) map
+    has its input columns put back in fdt's (H, W, C) order), a PReLU's
+    one slope → a scalar (`path` ends in "negative_slope")."""
     w = value.detach().float().cpu().numpy()
-    return np.array(w.transpose(2, 3, 1, 0) if w.ndim == 4 else w, order="C", copy=True)
+    if w.ndim == 4:
+        w = w.transpose(2, 3, 1, 0)
+    elif w.ndim == 2:
+        if chw is not None:
+            c, h, wd = chw
+            w = w.reshape(-1, c, h, wd).transpose(0, 2, 3, 1).reshape(w.shape)
+        w = w.T
+    elif path and path[-1] == "negative_slope":
+        w = w.reshape(())
+    return np.array(w, order="C", copy=True)
+
+
+def flax_arrays(model: nn.Module, tensors: dict) -> dict[tuple[str, ...], np.ndarray]:
+    """{state-dict key: tensor} of `model` (its state, or optimizer buffers
+    shaped like its parameters) → {flax path: flax leaf}; keys without a
+    flax path (num_batches_tracked) are dropped."""
+    paths = flax_paths(model)
+    chw = getattr(model, "flatten_chw", {})
+    return {paths[key]: to_flax_array(value, paths[key], chw.get(key.rsplit(".", 1)[0]))
+            for key, value in tensors.items() if key in paths}
 
 
 def to_jax_variables(model: nn.Module) -> dict:
-    """The inverse of from_jax_variables for a model of convolutions and
-    BatchNorms: its parameters and running statistics as fdt's nested
-    {"params", "batch_stats"} tree of float32 numpy arrays, in flax layout.
-    num_batches_tracked is carried nowhere."""
-    paths = flax_paths(model)
+    """The inverse of from_jax_variables: the model's parameters and running
+    statistics as fdt's nested {"params", "batch_stats"} tree of float32
+    numpy arrays, in flax layout.  num_batches_tracked is carried nowhere."""
     tree: dict = {"params": {}, "batch_stats": {}}
-    for key, value in model.state_dict().items():
-        if key not in paths:
-            continue
-        *parents, leaf = paths[key]
+    for (*parents, leaf), value in flax_arrays(model, model.state_dict()).items():
         node = tree
         for p in parents:
             node = node.setdefault(p, {})
-        node[leaf] = to_flax_array(value)
+        node[leaf] = value
     return tree
 
 

@@ -59,6 +59,8 @@ class PyramidBox(nn.Module):
       face_loc  [B, P, 4] float32    face_conf [B, P, 2] float32 (logits,
       max-in-out applied)            source_shapes: ((f_width, f_height), ...)
       head_loc  [B, Ph, 4], head_conf [B, Ph, 2] float32 with `heads`
+      features  [c2, ..., c7], sources (the six SSH maps), NCHW, with
+                `features` (net2net distillation's taps)
 
     remat: while gradients are recorded, every Bottleneck and extra layer is
     checkpointed (fdt's per-block nn.remat), so only block-boundary
@@ -100,7 +102,7 @@ class PyramidBox(nn.Module):
             x = checkpoint(block, x) if remat else block(x)
         return x
 
-    def forward(self, x: torch.Tensor, heads: bool = False) -> dict:
+    def forward(self, x: torch.Tensor, heads: bool = False, features: bool = False) -> dict:
         c1 = max_pool(F.relu(self.bn1(self.conv1(x))), 3, 2, 1)
         c2 = self._blocks(self.layer1, c1)
         c3 = self._blocks(self.layer2, c2)
@@ -123,4 +125,5 @@ class PyramidBox(nn.Module):
                    self.conv4_SSH(c4_fuse), self.conv5_SSH(c5_lat),
                    self.conv6_SSH(c6_lat), self.conv7_SSH(c7_lat)]
 
-        return face_outputs(self, sources, heads)
+        return face_outputs(self, sources, heads,
+                            [c2, c3, c4, c5, c6, c7] if features else None)

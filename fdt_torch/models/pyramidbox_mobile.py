@@ -12,7 +12,10 @@ fdt/models/pyramidbox_mobile.py).
 NCHW; module names are fdt's flax names with `__` → `.`, so flax weights
 carry across mechanically (fdt_torch.models.loader).  Every variant returns
 the output of fdt_torch.models.pyramidbox.PyramidBox; the head-supervision
-branch is computed only with `heads=True` (training).
+branch is computed only with `heads=True` (training), the distillation taps
+only with `features=True` (net2net): try1/try2 tap c2..c7 (try2's after its
+channel expanders), try3-try5 c2..c6 after their smoothing convs, as fdt
+taps them.
 """
 from __future__ import annotations
 
@@ -140,7 +143,7 @@ class PyramidBoxMobileV1(nn.Module):
             self.add_module(name, SSHContext(cin, 256))
         add_pyramid_heads(self, 6, 512)
 
-    def forward(self, x, heads: bool = False) -> dict:
+    def forward(self, x, heads: bool = False, features: bool = False) -> dict:
         c1 = max_pool(F.relu(self.bn1(self.conv1_my(x))), 3, 2, 1)
         c2 = self.layer1_my(c1)
         c3 = self.layer2_my(c2)
@@ -165,7 +168,8 @@ class PyramidBoxMobileV1(nn.Module):
         sources = [self.conv2_SSH(c2_fuse), self.conv3_SSH(c3_fuse),
                    self.conv4_SSH(c4_fuse), self.conv5_SSH(c5_lat),
                    self.conv6_SSH(c6_lat), self.conv7_SSH(c7_lat)]
-        return face_outputs(self, sources, heads)
+        return face_outputs(self, sources, heads,
+                            [c2, c3, c4, c5, c6, c7] if features else None)
 
 
 # MobileNetV2 (expand ratio, channels, blocks, first stride) per group
@@ -211,7 +215,7 @@ class PyramidBoxMobileV2(nn.Module):
             self.add_module(name, SSHContext(cin, 128))
         add_pyramid_heads(self, 5, 256)
 
-    def forward(self, x, heads: bool = False) -> dict:
+    def forward(self, x, heads: bool = False, features: bool = False) -> dict:
         taps = []
         h = x
         for i, block in enumerate(self.features):
@@ -229,7 +233,7 @@ class PyramidBoxMobileV2(nn.Module):
         c4 = self.smooth_c4(c4)
         sources = [self.conv2_SSH(c2), self.conv3_SSH(c3), self.conv4_SSH(c4),
                    self.conv5_SSH(c5), self.conv6_SSH(c6)]
-        return face_outputs(self, sources, heads)
+        return face_outputs(self, sources, heads, [c2, c3, c4, c5, c6] if features else None)
 
 
 def build_pyramidbox(variant: str, remat: bool = False) -> nn.Module:

@@ -7,9 +7,12 @@ latest_checkpoint finds, as fdt's orbax directories are named), holding
                  (save_variables_npz), params in float32 so that a resume
                  keeps the master weights, not compressed (zlib over the
                  flagship's float32 weights held the loop for seconds a
-                 save); fdt's load_variables reads it;
-  opt_state.npz  `momentum/<flax path>`: the SGD momentum buffers in flax
-                 layout, and `step`.
+                 save); fdt's load_variables reads it (MTCNN's nets have
+                 params only);
+  opt_state.npz  the optimizer's state under flax paths, and `step`:
+                 SGD's momentum buffers as `momentum/<path>`; Adam's first
+                 and second moments as optax's `mu/<path>` and `nu/<path>`,
+                 with its step count as `count`.
 
 restore_checkpoint loads both back into a trainer, which resumes exactly.
 """
@@ -22,10 +25,11 @@ import numpy as np
 import torch
 
 from fdt_torch.models.loader import (flax_paths, from_jax_variables, load_npz,
-                                     save_variables_npz, to_flax_array,
-                                     to_jax_variables)
+                                     save_variables_npz, to_flax_array, to_jax_variables)
 
 VARIABLES, OPT_STATE = "variables.npz", "opt_state.npz"
+# torch optimizer state key → its opt_state.npz prefix (SGD, Adam)
+_BUFFERS = {"momentum_buffer": "momentum", "exp_avg": "mu", "exp_avg_sq": "nu"}
 
 
 def save_checkpoint(trainer, directory: str, name: str, step: int) -> str:
@@ -35,35 +39,50 @@ def save_checkpoint(trainer, directory: str, name: str, step: int) -> str:
     os.makedirs(path, exist_ok=True)
     save_variables_npz(to_jax_variables(trainer.model), os.path.join(path, VARIABLES),
                        dtype=np.float32, compress=False)
-    paths = flax_paths(trainer.model)
+    paths = flax_paths(trainer.model)  # one walk of the model for every buffer
+    chw = getattr(trainer.model, "flatten_chw", {})
     opt = {"step": np.int64(trainer.step)}
     for key, p in trainer.model.named_parameters():
-        buf = trainer.optimizer.state.get(p, {}).get("momentum_buffer")
-        if buf is not None:
-            opt["momentum/" + "/".join(paths[key][1:])] = to_flax_array(buf)
+        state = trainer.optimizer.state.get(p, {})
+        for buf, prefix in _BUFFERS.items():
+            if buf in state:
+                opt[prefix + "/" + "/".join(paths[key][1:])] = to_flax_array(
+                    state[buf], paths[key], chw.get(key.rsplit(".", 1)[0]))
+        if "step" in state:  # Adam: one count for every parameter, as optax keeps it
+            opt["count"] = np.int64(float(state["step"]))
     np.savez(os.path.join(path, OPT_STATE), **opt)
     return path
 
 
+def _model_state(model, variables: dict) -> dict:
+    return from_jax_variables(variables, getattr(model, "flatten_chw", None))
+
+
 def restore_checkpoint(path: str, trainer):
     """Load a checkpoint directory into `trainer`: the model's variables
-    (strict), the momentum buffers and the step.  Returns the trainer."""
-    sd = from_jax_variables(load_npz(os.path.join(path, VARIABLES)))
-    trainer.model.load_state_dict(sd, strict=True)
+    (strict), the optimizer's buffers and the step.  Returns the trainer."""
+    trainer.model.load_state_dict(
+        _model_state(trainer.model, load_npz(os.path.join(path, VARIABLES))), strict=True)
+    buffers = {}
     with np.load(os.path.join(path, OPT_STATE)) as z:
         trainer.step = int(z["step"])
-        momentum = {"params": {}}
-        for key in z.files:
-            if key.startswith("momentum/"):
-                node = momentum["params"]
-                *parents, leaf = key.split("/")[1:]
-                for p in parents:
-                    node = node.setdefault(p, {})
-                node[leaf] = z[key]
-    buffers = from_jax_variables(momentum)
+        count = int(z["count"]) if "count" in z.files else None
+        for buf, prefix in _BUFFERS.items():
+            tree = {"params": {}}
+            for key in z.files:
+                if key.startswith(prefix + "/"):
+                    node = tree["params"]
+                    *parents, leaf = key.split("/")[1:]
+                    for p in parents:
+                        node = node.setdefault(p, {})
+                    node[leaf] = z[key]
+            buffers[buf] = _model_state(trainer.model, tree)
     for key, p in trainer.model.named_parameters():
-        if key in buffers:
-            trainer.optimizer.state[p]["momentum_buffer"] = buffers[key].to(p.device, p.dtype)
+        state = {buf: b[key].to(p.device, p.dtype) for buf, b in buffers.items() if key in b}
+        if state:
+            if count is not None:
+                state["step"] = torch.tensor(float(count))
+            trainer.optimizer.state[p] = state
     return trainer
 
 
@@ -80,15 +99,35 @@ def latest_checkpoint(directory: str, name: str):
     return best
 
 
+def read_variables(path: str) -> dict:
+    """A model's variables as fdt's {"params", "batch_stats"} tree: from a
+    variables npz in fdt's format or from a checkpoint directory of the
+    port.  A torch .pth/.pt state dict or an orbax directory is refused."""
+    if os.path.isdir(path):
+        if not os.path.exists(os.path.join(path, VARIABLES)):
+            raise ValueError(f"{path}: no {VARIABLES} (an orbax directory is not "
+                             "readable here)")
+        path = os.path.join(path, VARIABLES)
+    elif path.endswith((".pth", ".pt")):
+        raise ValueError(f"{path}: reading a torch state dict is not ported yet "
+                         "(ROADMAP Queue 1 item 4, checkpoint tooling and .pth interop); "
+                         "pass a variables npz or a checkpoint directory")
+    elif not path.endswith(".npz"):
+        raise ValueError(f"{path}: the port reads a variables npz or a checkpoint directory")
+    return load_npz(path)
+
+
+def load_model_weights(path: str, model: torch.nn.Module) -> torch.nn.Module:
+    """read_variables(path) loaded strict into `model`; returns it."""
+    with torch.no_grad():
+        model.load_state_dict(_model_state(model, read_variables(path)), strict=True)
+    return model
+
+
 def load_weights(path: str, trainer) -> None:
-    """--resume of the port's CLI: a checkpoint directory (full state) or a
+    """--resume of the port's CLIs: a checkpoint directory (full state) or a
     variables npz in fdt's format (params and batch_stats only)."""
     if os.path.isdir(path):
         restore_checkpoint(path, trainer)
         return
-    if not path.endswith(".npz"):
-        raise ValueError(f"{path}: the port reads a variables npz or a checkpoint "
-                         "directory (a .pth or an orbax directory is not readable here)")
-    sd = from_jax_variables(load_npz(path))
-    with torch.no_grad():
-        trainer.model.load_state_dict(sd, strict=True)
+    load_model_weights(path, trainer.model)

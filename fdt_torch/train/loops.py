@@ -108,7 +108,69 @@ def source_shapes(model: torch.nn.Module, input_size: int, device) -> tuple:
         model.train(was_training)
 
 
-class PyramidTrainer:
+class DeviceTrainer:
+    """What the port's trainers share: the model in train mode on one
+    device, the precision and compute type of its forward, the upload of a
+    batch, and the optimizer step with fdt's conventions.
+
+    Args:
+      model: moved to `device` (channels_last for bf16) and put in train mode.
+      precision: "default" (TF32 allowed, fdt's default) or "highest".
+      dtype: torch.float32, or torch.bfloat16: the forward and backward under
+        autocast, float32 parameters, optimizer state and loss.
+      device: None → "cuda" (raises if absent); "cpu" for the CPU.
+    A subclass sets `self.optimizer`.
+    """
+
+    def __init__(self, model, precision: str = "default",
+                 dtype: torch.dtype = torch.float32, device=None):
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
+        self.precision = _check_precision(precision)
+        self.dtype = dtype
+        self.device = _resolve_device(device)
+        self.memory_format = (torch.channels_last if dtype == torch.bfloat16
+                              else torch.contiguous_format)
+        self.model = model.to(self.device, memory_format=self.memory_format).train()
+        self.step = 0
+
+    def _put(self, x, dtype=None) -> torch.Tensor:
+        x = torch.from_numpy(np.ascontiguousarray(x)) if isinstance(x, np.ndarray) else x
+        return x.to(self.device, non_blocking=True).to(dtype or x.dtype)
+
+    def _images(self, images, scale: float | None = None) -> torch.Tensor:
+        """NHWC images (float16 from the prefetcher, float32 or uint8) → the
+        model's NCHW float32 input on the device, divided by `scale` first
+        when given (fdt's arithmetic: the cast, then the division)."""
+        x = self._put(images, torch.float32)
+        if scale is not None:
+            x = x / scale
+        return x.permute(0, 3, 1, 2).contiguous(memory_format=self.memory_format)
+
+    def _autocast(self):
+        if self.dtype == torch.float32:
+            return contextlib.nullcontext()
+        return torch.autocast(self.device.type, dtype=self.dtype)
+
+    def _optimizer_step(self, lr: float | None = None, zero_grad=None) -> None:
+        """The update after a backward: a parameter without a gradient gets
+        zeros (fdt's gradient of an unused leaf; weight decay and momentum
+        still move it), `zero_grad(name)` zeroes a frozen one's, `lr` (when
+        given) is set on every group, then one optimizer step."""
+        for name, p in self.model.named_parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            elif zero_grad is not None and zero_grad(name):
+                p.grad.zero_()
+        if lr is not None:
+            for group in self.optimizer.param_groups:
+                group["lr"] = float(lr)
+        self.optimizer.step()
+        self.optimizer.zero_grad(set_to_none=True)
+        self.step += 1
+
+
+class PyramidTrainer(DeviceTrainer):
     """The train step of a PyramidBox variant on one device.
 
     Args:
@@ -131,21 +193,13 @@ class PyramidTrainer:
                  weight_decay: float = 1e-4, precision: str = "default",
                  freeze_predicate=None, remat: bool = False,
                  dtype: torch.dtype = torch.float32, device=None):
-        if dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
+        super().__init__(model, precision, dtype, device)
         self.cfg = PYRAMID_CONFIGS[cfg] if isinstance(cfg, str) else cfg
         self.loss_cfg = loss_cfg
         self.head_weight = head_weight
-        self.precision = _check_precision(precision)
         self.freeze_predicate = freeze_predicate
         self.remat = remat
-        self.dtype = dtype
-        self.device = _resolve_device(device)
-        self.memory_format = (torch.channels_last if dtype == torch.bfloat16
-                              else torch.contiguous_format)
-        self.model = model.to(self.device, memory_format=self.memory_format).train()
         self.optimizer = sgd_optimizer(self.model.parameters(), momentum, weight_decay)
-        self.step = 0
         self.input_size = input_size
         shapes = source_shapes(self.model, input_size, self.device)
         self.priors_face = torch.from_numpy(
@@ -153,31 +207,18 @@ class PyramidTrainer:
         self.priors_head = torch.from_numpy(
             pyramid_head_priors(self.cfg, shapes, input_size, input_size)).to(self.device)
 
-    def _put(self, x, dtype=None) -> torch.Tensor:
-        x = torch.from_numpy(np.ascontiguousarray(x)) if isinstance(x, np.ndarray) else x
-        return x.to(self.device, non_blocking=True).to(dtype or x.dtype)
-
-    def _autocast(self):
-        if self.dtype == torch.float32:
-            return contextlib.nullcontext()
-        return torch.autocast(self.device.type, dtype=self.dtype)
-
     def _losses(self, images, gt_boxes, gt_labels, gt_valid):
         """(total loss, (face_l, face_c, head_l, head_c)); images [B,S,S,3]
         NHWC (float16 from the prefetcher, or float32), cast to float32 on
         the device."""
-        x = self._put(images, torch.float32).permute(0, 3, 1, 2).contiguous(
-            memory_format=self.memory_format)
+        x = self._images(images)
         gt_boxes = self._put(gt_boxes, torch.float32)
         gt_labels, gt_valid = self._put(gt_labels), self._put(gt_valid)
         with self._autocast():
             fwd = lambda x: self.model(x, heads=True)  # noqa: E731
             out = checkpoint(fwd, x) if self.remat and torch.is_grad_enabled() else fwd(x)
         # the loss math (matching, mining, log-sum-exp) must run in float32
-        for k in ("face_loc", "face_conf", "head_loc", "head_conf"):
-            if out[k].dtype != torch.float32:
-                raise TypeError(f"model output {k!r} is {out[k].dtype}, "
-                                "expected float32 (loss math must be f32)")
+        check_float32(out, ("face_loc", "face_conf", "head_loc", "head_conf"))
         l_l, l_c = multibox_loss(out["face_loc"], out["face_conf"], self.priors_face,
                                  gt_boxes, gt_labels, gt_valid, self.loss_cfg)
         h_l, h_c = multibox_loss(out["head_loc"], out["head_conf"], self.priors_head,
@@ -192,16 +233,7 @@ class PyramidTrainer:
         with tf32_for(self.precision):
             loss, parts = self._losses(images, gt_boxes, gt_labels, gt_valid)
             loss.backward()
-        for name, p in self.model.named_parameters():
-            if p.grad is None:  # fdt's gradient of an unused leaf is zeros
-                p.grad = torch.zeros_like(p)
-            elif freeze and self.freeze_predicate is not None and self.freeze_predicate(name):
-                p.grad.zero_()
-        for group in self.optimizer.param_groups:
-            group["lr"] = float(lr)
-        self.optimizer.step()
-        self.optimizer.zero_grad(set_to_none=True)
-        self.step += 1
+        self._optimizer_step(lr, self.freeze_predicate if freeze else None)
         return dict(zip(METRICS, (t.detach() for t in (loss, *parts))))
 
     def eval_loss(self, images, gt_boxes, gt_labels, gt_valid) -> torch.Tensor:
@@ -211,6 +243,14 @@ class PyramidTrainer:
         self.model.train()
         with torch.no_grad(), running_stats_frozen(), tf32_for(self.precision):
             return self._losses(images, gt_boxes, gt_labels, gt_valid)[0]
+
+
+def check_float32(out: dict, keys) -> None:
+    """The loss math must run in float32, whatever the forward's type."""
+    for k in keys:
+        if out[k].dtype != torch.float32:
+            raise TypeError(f"model output {k!r} is {out[k].dtype}, "
+                            "expected float32 (loss math must be f32)")
 
 
 class LossHistory:

@@ -644,3 +644,96 @@ def test_train_step_on_card_matches_cpu(card):
         else:
             assert np.abs(got[k] - want[k]).max() <= 1e-3 * np.abs(want[k]).max() + 1e-6, k
             np.testing.assert_array_equal(runs["remat"][1][k], got[k], err_msg=k)
+
+
+def _card_against_cpu(make_trainer, step, card, steps: int = 2, loss_rtol: float = 1e-4,
+                      change_rtol: float = 1e-2, sign_share: float | None = None):
+    """`steps` steps of make_trainer(device) on the card and on the CPU from
+    the same weights: every metric within loss_rtol, every parameter change
+    within change_rtol of the largest change of any leaf, the running
+    statistics within 1e-3 of each leaf's largest value, and, given
+    sign_share, the changes' signs (chip_smoke.change_signs) the same but
+    for at most that share of the elements."""
+    from fdt_torch.models.loader import flat_variables, to_jax_variables
+    before = flat_variables(to_jax_variables(make_trainer("cpu").model))
+    runs = {}
+    for name, dev in (("cpu", "cpu"), ("card", card)):
+        t = make_trainer(dev)
+        metrics = [step(t) for _ in range(steps)]
+        runs[name] = (metrics, flat_variables(to_jax_variables(t.model)))
+    for got, want in zip(runs["card"][0], runs["cpu"][0]):
+        np.testing.assert_allclose(got, want, rtol=loss_rtol)
+    got, want = runs["card"][1], runs["cpu"][1]
+    scale = max(np.abs(want[k] - before[k]).max() for k in want if k.startswith("params/"))
+    for k in want:
+        if k.startswith("params/"):
+            assert np.abs((got[k] - before[k]) - (want[k] - before[k])).max() <= change_rtol * scale, k
+        else:
+            assert np.abs(got[k] - want[k]).max() <= 1e-3 * np.abs(want[k]).max() + 1e-6, k
+    if sign_share is not None:
+        flipped = np.mean(chip_smoke.change_signs(before, got)
+                          != chip_smoke.change_signs(before, want))
+        assert flipped <= sign_share, flipped
+
+
+def test_facebox_train_step_on_card_matches_cpu(card):
+    """FaceBoxes at 128² (maps 4/2/1), batch 2, float32 "highest", 2 steps at
+    lr 1e-3 from seeded weights, on the card and on the CPU."""
+    import dataclasses
+
+    from fdt_torch.config import FACEBOX
+    from fdt_torch.models import FaceBox, from_jax_variables
+    from fdt_torch.train.facebox_train import FaceBoxTrainer
+    cfg = dataclasses.replace(FACEBOX, input_size=128, feature_map_sizes=(4, 2, 1))
+    batch = chip_smoke.facebox_train_batch(0, 2, 128)
+
+    def make(dev):
+        model = FaceBox()
+        model.load_state_dict(from_jax_variables(chip_smoke.seeded_variables(model, 0)))
+        return FaceBoxTrainer(model, cfg=cfg, precision="highest", device=dev)
+
+    _card_against_cpu(make, lambda t: [float(v) for v in t.train_step(*batch, 1e-3).values()],
+                      card)
+
+
+def test_net2net_step_on_card_matches_cpu(card):
+    """net2net intermedia, try1 → try1 at 160², batch 2, float32 "highest",
+    2 steps at lr 1e-7 from seeded weights, on the card and on the CPU."""
+    from fdt_torch.models import build_pyramidbox, from_jax_variables
+    from fdt_torch.train.net2net import Net2NetTrainer
+    images = chip_smoke.net2net_batch(0, 2, 160)[0]
+
+    def make(dev):
+        nets = []
+        for seed in (0, 1):
+            m = build_pyramidbox("try1")
+            m.load_state_dict(from_jax_variables(chip_smoke.seeded_variables(m, seed)))
+            nets.append(m)
+        return Net2NetTrainer(*nets, "intermedia", input_size=160, precision="highest",
+                              device=dev)
+
+    def step(t):
+        m = t.train_step(images, 1e-7)
+        return [float(m["loss"])] + m["parts"].cpu().tolist()
+
+    _card_against_cpu(make, step, card)
+
+
+@pytest.mark.parametrize("stage", ["pnet", "rnet", "onet"])
+def test_mtcnn_train_step_on_card_matches_cpu(card, stage):
+    """An MTCNN stage, batch 64 of seeded patches with every label kind,
+    float32 "highest", 2 Adam steps at lr 1e-3 from seeded weights, on the
+    card and on the CPU; the changes' signs agree but for at most 1e-3 of
+    the elements (Adam moves each by ~lr whatever its gradient)."""
+    from fdt_torch.models import ONet, PNet, RNet, from_jax_variables
+    from fdt_torch.train.mtcnn_train import MTCNNStageTrainer
+    batch = chip_smoke.mtcnn_train_batch(stage, 0, 64)
+
+    def make(dev):
+        net = {"pnet": PNet, "rnet": RNet, "onet": ONet}[stage]()
+        net.load_state_dict(from_jax_variables(chip_smoke.seeded_variables(net, 2),
+                                               net.flatten_chw))
+        return MTCNNStageTrainer(stage, 1e-3, "highest", model=net, device=dev)
+
+    _card_against_cpu(make, lambda t: [float(v) for v in t.train_step(*batch).values()], card,
+                      change_rtol=2e-2, sign_share=1e-3)

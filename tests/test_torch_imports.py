@@ -59,7 +59,11 @@ def test_every_module_imports_without_building_kernels():
             "fdt_torch.train.multibox_loss", "fdt_torch.train.loops",
             "fdt_torch.train.checkpoint", "fdt_torch.train.driver", "fdt_torch.utils.watchdog",
             "fdt_torch.data.resize", "fdt_torch.data.augment", "fdt_torch.data.widerface",
-            "fdt_torch.cli.train_pyramid"} <= set(names)
+            "fdt_torch.cli.train_pyramid", "fdt_torch.train.facebox_train",
+            "fdt_torch.train.net2net", "fdt_torch.train.mtcnn_train",
+            "fdt_torch.data.mtcnn_data", "fdt_torch.cli.train_facebox",
+            "fdt_torch.cli.train_net2net", "fdt_torch.cli.train_mtcnn",
+            "fdt_torch.cli.gen_mtcnn_data"} <= set(names)
     for name in names:
         importlib.import_module(name)
     assert _build._lib is None

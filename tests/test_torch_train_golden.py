@@ -15,7 +15,6 @@ Written by
 holds the port's CPU float32 steps to it.
 """
 import argparse
-import hashlib
 import pathlib
 import sys
 
@@ -29,13 +28,6 @@ import chip_smoke  # noqa: E402
 
 WEIGHTS = REPO / "net_weight" / "repo_mini.npz"
 PARTS = ("loss", "face_loc", "face_conf", "head_loc", "head_conf")
-
-
-def batch_sha256(batch) -> str:
-    h = hashlib.sha256()
-    for a in batch:
-        h.update(np.ascontiguousarray(a).tobytes())
-    return h.hexdigest()
 
 
 def make_golden() -> dict:
@@ -67,7 +59,7 @@ def make_golden() -> dict:
             "batch": np.int64(chip_smoke.TRAIN_GOLDEN_BATCH),
             "size": np.int64(chip_smoke.SIZE), "steps": np.int64(chip_smoke.TRAIN_STEPS),
             "lr": np.float64(chip_smoke.TRAIN_LR),
-            "batch_sha256": np.str_(batch_sha256(batch)), **summary}
+            "batch_sha256": np.str_(chip_smoke.batch_sha256(batch)), **summary}
 
 
 def test_golden_file_is_consistent():
@@ -82,7 +74,7 @@ def test_golden_file_is_consistent():
         chip_smoke.TRAIN_SEED, chip_smoke.TRAIN_GOLDEN_BATCH, chip_smoke.SIZE,
         chip_smoke.TRAIN_STEPS, chip_smoke.TRAIN_LR)
     batch = chip_smoke.train_batch(int(g["seed"]), int(g["batch"]), int(g["size"]))
-    assert batch_sha256(batch) == str(g["batch_sha256"])
+    assert chip_smoke.batch_sha256(batch) == str(g["batch_sha256"])
     assert tuple(g["parts"]) == PARTS
     losses = g["losses"]
     assert losses.shape == (chip_smoke.TRAIN_STEPS, 5) and np.isfinite(losses).all()
