@@ -144,7 +144,26 @@ Phases, each printing one line with its seconds:
                gen_mtcnn_data rnet → train_mtcnn rnet (one epoch each) on
                seeded scenes, then the device cascade on the trained nets
                (K1 counted).
-Then a JSON line of the kernels and, last, {"ok": true, "device": {...}}.
+ 19. interop — reference .pth/.pt weights, each against its npz, every
+               output bit-equal: the flagship (640², batch 8, float32) from a
+               .pth in fdt's flax_to_torch layout, FaceBoxes (seeded, strict)
+               and the device cascade from three .pt files of seeded nets;
+               a .pth written from the card model reloads bit-equal.
+ 20. tooling — train_chained replays try3's journal, scaled to two phases
+               of one chunk process each (2 iterations at 640², batch 2,
+               from net_weight/try3_mini.npz; each chunk's wall, loop and
+               start-up seconds); select_checkpoint over its checkpoints on
+               6 seeded drawn-face images (one K1 launch a checkpoint-image;
+               APs within 1e-3 of the same CLI on the CPU); export_weights
+               --check of the last checkpoint to .pth and .npz.
+ 21. inception — Inception-ResNet-v2 at full depth, 299², batch 8, float32
+               "highest", seeded weights with calibrated BatchNorm statistics:
+               within 1e-3 of the scale of the CPU's logits of 2 images, ms
+               a batch (CUDA events) and images/s beside the card's name and
+               power limit.
+Then a [device] line (torch's and nvidia-smi's card counts, NCCL's presence
+and version), a JSON line of the kernels and, last, {"ok": true, "device":
+{...}}.
 Any failure exits non-zero; a hang exits non-zero with a traceback.
 """
 from __future__ import annotations
@@ -171,9 +190,9 @@ GOLDEN_DIR = REPO / "fdt_torch" / "golden"
 GOLDEN = GOLDEN_DIR / "flagship_f32.npz"
 # a hang must exit with a traceback before whoever runs this script kills
 # it, so this stays well under any time limit it is run with (the whole run
-# takes three to four minutes on an H100, the nvcc build and its one-nvcc
-# reference included)
-HANG_LIMIT_S = 420
+# takes seven to eight and a half minutes on an H100, the nvcc build and its
+# one-nvcc reference included)
+HANG_LIMIT_S = 720
 WARMUP_S = 2.0  # before each throughput measurement
 SIZE, BATCH = 640, 8  # the flagship: bench.py:167-200
 
@@ -4377,21 +4396,19 @@ def card_line() -> str:
     return lines[0] if lines else f"nvidia-smi failed: {smi.stderr.strip()}"
 
 
-def write_mtcnn_set(directory: pathlib.Path, n: int = 8, seed: int = 11) -> pathlib.Path:
-    """n seeded 240×320 photo_like PNGs, each with 1-2 drawn faces (a skin
-    block of 48-90 px with dark eyes and a mouth), and their anno file in the
-    MTCNN factory's format (`<path> x1 y1 x2 y2 ...`, inclusive corners);
-    returns its path."""
-    from fdt_torch.data.image_io import imwrite
+def drawn_faces(n: int, seed: int, h: int = 240, w: int = 320) -> list:
+    """n seeded h×w photo_like BGR images, each with 1-2 drawn faces (a skin
+    block of 48-90 px with dark eyes and a mouth), and their boxes as
+    inclusive corners (x1, y1, x2, y2)."""
     rng = np.random.RandomState(seed)
-    lines = []
+    out = []
     for i in range(n):
-        img = photo_like(240, 320, seed + i).astype(np.int32)
+        img = photo_like(h, w, seed + i).astype(np.int32)
         boxes = []
         for j in range(1 + i % 2):
             side = int(rng.randint(48, 91))
-            x = int(rng.randint(0, 320 - side)) if j == 0 else (x + side + 8) % (320 - side)
-            y = int(rng.randint(0, 240 - side))
+            x = int(rng.randint(0, w - side)) if j == 0 else (x + side + 8) % (w - side)
+            y = int(rng.randint(0, h - side))
             face = img[y:y + side, x:x + side]
             face[:] = np.array([110, 150, 205]) + rng.randint(-8, 9, face.shape)
             e, r = side // 4, max(side // 10, 2)
@@ -4399,10 +4416,36 @@ def write_mtcnn_set(directory: pathlib.Path, n: int = 8, seed: int = 11) -> path
                 face[side * 2 // 5 - r:side * 2 // 5 + r, ex - r:ex + r] = 30
             face[side * 3 // 4 - r // 2:side * 3 // 4 + r // 2 + 1, side // 3:side * 2 // 3] = 60
             boxes.append((x, y, x + side - 1, y + side - 1))
+        out.append((np.clip(img, 0, 255).astype(np.uint8), boxes))
+    return out
+
+
+def write_mtcnn_set(directory: pathlib.Path, n: int = 8, seed: int = 11) -> pathlib.Path:
+    """The drawn_faces images as PNGs and their anno file in the MTCNN
+    factory's format (`<path> x1 y1 x2 y2 ...`, inclusive corners); returns
+    its path."""
+    from fdt_torch.data.image_io import imwrite
+    lines = []
+    for i, (img, boxes) in enumerate(drawn_faces(n, seed)):
         path = directory / f"mtcnn_{i}.png"
-        imwrite(str(path), np.clip(img, 0, 255).astype(np.uint8))
+        imwrite(str(path), img)
         lines.append(f"{path} " + " ".join(f"{v}" for b in boxes for v in b))
     anno = directory / "mtcnn_anno.txt"
+    anno.write_text("\n".join(lines) + "\n")
+    return anno
+
+
+def write_face_val_set(directory: pathlib.Path, n: int = 6, seed: int = 21) -> pathlib.Path:
+    """The drawn_faces images as PNGs and their anno file in gen_anno_file's
+    format (`<path> <N> x y w h ...`): a val set for select_checkpoint."""
+    from fdt_torch.data.image_io import imwrite
+    lines = []
+    for i, (img, boxes) in enumerate(drawn_faces(n, seed)):
+        path = directory / f"val_{i}.png"
+        imwrite(str(path), img)
+        cells = [v for x1, y1, x2, y2 in boxes for v in (x1, y1, x2 - x1 + 1, y2 - y1 + 1)]
+        lines.append(f"{path} {len(boxes)} " + " ".join(map(str, cells)))
+    anno = directory / "gen_anno_file_val"
     anno.write_text("\n".join(lines) + "\n")
     return anno
 
@@ -4620,6 +4663,344 @@ def phase_train_families(device) -> int:
     return fb_k1 + mt_k1
 
 
+# ---- weight interop, checkpoint tooling and Inception-ResNet-v2 ----
+TRY3_WEIGHTS = REPO / "net_weight" / "try3_mini.npz"
+# train_chained's journal run: try3's journal scaled so that its two phases
+# end at 4 and 6 (round(18000·s), round(24000·s)); chunks of 2 iterations from
+# iteration 2 make two chunk processes, one a phase, at 640², batch 2
+CHAIN_SCALE, CHAIN_START, CHAIN_CHUNK, CHAIN_BATCH = 2.4e-4, 2, 2, 2
+# the chunks' checkpoint directories (not the loss files training writes
+# beside them, try3_pyramid_loss_<it>.npy)
+CHECKPOINTS = "try3_pyramid_[0-9]*"
+SELECT_VAL_IMAGES = 6
+SELECT_AP_TOL = 1e-3  # the card's APs against the CPU's, same files
+INCEPTION_SEED, INCEPTION_SIZE, INCEPTION_BATCH, INCEPTION_CPU_BATCH = 0, 299, 8, 2
+# the card's float32 ("highest", TF32 off) logits against the CPU's, as a
+# share of the logits' largest magnitude: 39 residual blocks of float32 sums
+# in cuDNN's and the CPU's orders (my CPU float32 forward is ~1e-6 of scale
+# from a float64 one on the reduced towers)
+INCEPTION_TOL = 1e-3
+# the logits of two images must differ by this share of the scale: an
+# untrained net whose BatchNorm statistics are not its data's washes the
+# image out (fdt's test's random statistics: 3.7e-5 of the scale apart)
+INCEPTION_SPREAD_MIN = 1e-2
+
+
+def seeded_inception(repeats=(10, 20, 9), seed: int = INCEPTION_SEED) -> torch.nn.Module:
+    """Inception-ResNet-v2 in eval mode on the CPU: torch's initialisation
+    under `seed`, the BatchNorm affine parameters randomised as fdt's test
+    does (tests/test_inception_resnet_v2.py:17-30), and the running
+    statistics those of a seeded calibration batch of two 299² images (one
+    train-mode forward at momentum 1; the model's own momentum 0 restored)."""
+    from fdt_torch.models import InceptionResnetV2
+    with torch.random.fork_rng():
+        torch.manual_seed(seed)
+        model = InceptionResnetV2(repeats=repeats)
+    g = torch.Generator().manual_seed(seed)
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    with torch.no_grad():
+        for m in bns:
+            m.weight.copy_(torch.rand(m.weight.shape, generator=g) + 0.5)
+            m.bias.copy_(torch.randn(m.bias.shape, generator=g) * 0.1)
+            m.momentum = 1.0
+        model.train()(torch.rand(2, 3, INCEPTION_SIZE, INCEPTION_SIZE, generator=g))
+    for m in bns:
+        m.momentum = 0.0
+    return model.eval()
+
+
+def inception_images(n: int, seed: int = INCEPTION_SEED + 1) -> torch.Tensor:
+    """n seeded [3, 299, 299] float32 images in [0, 1)."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.rand(n, 3, INCEPTION_SIZE, INCEPTION_SIZE, generator=g)
+
+
+def inception_spread(logits: torch.Tensor) -> float:
+    """The largest difference of two images' logits over the logits' scale."""
+    scale = float(logits.abs().max())
+    return float((logits[1:] - logits[:1]).abs().max()) / scale if scale else 0.0
+
+
+def check_inception(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """`got` (the card's) against `want` (the CPU's) on the same images:
+    finite, not washed out, within INCEPTION_TOL of the scale."""
+    got, want = got.float().cpu(), want.float().cpu()
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError("inception: logits are not finite")
+    spread = inception_spread(want)
+    if spread < INCEPTION_SPREAD_MIN:
+        raise AssertionError(f"inception: the logits hardly depend on the image "
+                             f"(spread {spread:.3g} of scale)")
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max()) / scale
+    if err > INCEPTION_TOL:
+        raise AssertionError(f"inception: {err:.3g} of scale from the CPU's logits")
+    return {"rel_err": err, "scale": scale, "spread": spread}
+
+
+def same_state(a: torch.nn.Module, b: torch.nn.Module) -> bool:
+    """Every parameter and running statistic of the two models equal (on the
+    CPU); num_batches_tracked, which no weight file carries, aside."""
+    sa, sb = ({k: v for k, v in m.state_dict().items() if not k.endswith("num_batches_tracked")}
+              for m in (a, b))
+    return sa.keys() == sb.keys() and all(torch.equal(sa[k].cpu(), sb[k].cpu()) for k in sa)
+
+
+def _k1_during(fn):
+    """(fn()'s result, K1's launches during it), the card synchronised."""
+    from fdt_torch.ops import nms as nms_op
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    sync()
+    nms_op.launches.reset()
+    out = fn()
+    sync()
+    return out, nms_op.launches.count
+
+
+def phase_interop(device) -> int:
+    """Reference `.pth`/`.pt` weights on the card, each against its npz:
+    the flagship (repo_mini.npz through save_variables_pth's tree path,
+    fdt's flax_to_torch rules) at 640², batch 8, float32 "highest";
+    FaceBoxes (seeded, strict) at 1024², batch 2; the device cascade from
+    three .pt files of the sparse setting's seeded nets on the MTCNN
+    golden's frames.  Every output bit-equal; then a .pth the port writes
+    from the card model reloads bit-equal.  Returns K1's launches."""
+    import tempfile
+
+    from fdt_torch.config import FACEBOX
+    from fdt_torch.infer import FAST_BUDGETS, MID_BUDGETS
+    from fdt_torch.models import (FaceBox, ONet, PNet, RNet, from_jax_variables,
+                                  load_facebox_detector, load_mtcnn_cascade, load_npz,
+                                  load_pyramidbox, load_pyramidbox_detector,
+                                  load_weights_file, save_variables_pth)
+    from fdt_torch.models.loader import save_variables_npz, to_jax_variables
+
+    t0 = time.perf_counter()
+    launches = 0
+    with tempfile.TemporaryDirectory() as tmp, _tf32(True):
+        tmp = pathlib.Path(tmp)
+        pth = str(tmp / "repo.pth")
+        save_variables_pth(load_npz(str(WEIGHTS)), pth)
+        frames = torch.from_numpy(flagship_batch()).to(device)
+        dets = [load_pyramidbox_detector("repo", w, device=device) for w in (str(WEIGHTS), pth)]
+        for det in dets:
+            det.detect_device(frames, conf_thresh=0.05)  # first use of the shape
+        outs = []
+        for det in dets:
+            out, k1 = _k1_during(lambda d=det: d.detect_device(frames, conf_thresh=0.05))
+            outs.append(out)
+            launches += k1
+        if not torch.equal(outs[0], outs[1]) or not (outs[0][:, 1, :, 0] > 0.05).any():
+            raise AssertionError("interop: the .pth flagship's rows are not the npz's")
+        flagship_rows = int((outs[0][:, 1, :, 0] > 0.05).sum())
+        again = str(tmp / "again.pth")
+        save_variables_pth(dets[1].model, again)  # written from the card model
+        if not same_state(load_pyramidbox(again), dets[1].model):
+            raise AssertionError("interop: the card model's .pth does not reload bit-equal")
+        del dets, outs
+
+        fb = FaceBox()
+        fb.load_state_dict(from_jax_variables(seeded_variables(fb, FACEBOX_WEIGHTS_SEED)))
+        fb_npz, fb_pth = str(tmp / "facebox.npz"), str(tmp / "facebox.pth")
+        save_variables_npz(to_jax_variables(fb), fb_npz)
+        save_variables_pth(load_weights_file(FaceBox(), fb_npz), fb_pth)
+        fb_frames = torch.from_numpy(np.random.RandomState(2).randint(
+            0, 256, (2, FACEBOX.input_size, FACEBOX.input_size, 3), np.uint8)).to(device)
+        fb_out = []
+        for w in (fb_npz, fb_pth):
+            det = load_facebox_detector(w, device=device)
+            det.detect_device(fb_frames)
+            out, k1 = _k1_during(lambda d=det: d.detect_device(fb_frames))
+            fb_out.append(out)
+            launches += k1
+        if not all(torch.equal(a, b) for a, b in zip(*fb_out)):
+            raise AssertionError("interop: the .pth FaceBoxes detects differ from the npz's")
+
+        npz_paths, pt_paths = [], []
+        for name, net, variables in zip(("pnet", "rnet", "onet"), (PNet, RNet, ONet),
+                                        mtcnn_variables("sparse")):
+            npz_paths.append(str(tmp / f"{name}.npz"))
+            pt_paths.append(str(tmp / f"{name}_epoch.pt"))
+            save_variables_npz(variables, npz_paths[-1])
+            save_variables_pth(load_weights_file(net(), npz_paths[-1]), pt_paths[-1])
+        g = np.load(MTCNN_GOLDEN)
+        images = np.stack([golden_frame(int(s), int(g["height"]), int(g["width"]))
+                           for s in g["frame_seeds"]])
+        mt_out = []
+        for paths in (npz_paths, pt_paths):
+            cascade = load_mtcnn_cascade(*paths, device=device,
+                                         fast_budgets=(FAST_BUDGETS, MID_BUDGETS))
+            cascade.detect_batch(images)
+            out, k1 = _k1_during(lambda c=cascade: c.detect_batch(images))
+            mt_out.append(out)
+            launches += k1
+        if not all(np.array_equal(a, b) for a, b in zip(*mt_out)) or not mt_out[0][2].any():
+            raise AssertionError("interop: the .pt cascade's detections differ from the npz's")
+    _phase("interop", t0, flagship_rows=flagship_rows, facebox_boxes=int(fb_out[0][2].sum()),
+           mtcnn_counts=mt_out[0][2].tolist(), k1=launches)
+    return launches
+
+
+def _timed_chunks(argv, device: str) -> list:
+    """train_chained.main(argv) with each chunk process timed: [(wall s,
+    the chunk's own [train] line)], the chunks' output kept off this
+    script's (its tail printed if a chunk fails)."""
+    from fdt_torch.cli import train_chained
+    chunks = []
+
+    def call(cmd):
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        train = [ln for ln in run.stdout.splitlines() if ln.startswith("[train] ")]
+        if run.returncode or not train:
+            print(run.stdout[-4000:], run.stderr[-4000:], sep="\n", file=sys.stderr)
+            raise AssertionError(f"train_chained: a chunk exited {run.returncode}")
+        chunks.append((time.perf_counter() - t0, json.loads(train[-1][len("[train] "):])))
+        return run.returncode
+
+    real = train_chained.run_chunk
+    train_chained.run_chunk = lambda cmd, retries, label="", resume=None: real(
+        cmd, retries, label, resume, call=call)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = train_chained.main(argv)
+    finally:
+        train_chained.run_chunk = real
+    if rc:
+        raise AssertionError(f"train_chained exited {rc}")
+    return chunks
+
+
+def phase_tooling(device) -> int:
+    """The checkpoint tools on the card: train_chained replays try3's
+    journal (scaled: two phases, two chunk processes of 2 iterations at
+    640², batch 2, from net_weight/try3_mini.npz), every chunk's checkpoint
+    written; select_checkpoint over them on SELECT_VAL_IMAGES seeded
+    drawn-face images, one K1 launch a checkpoint-image, each AP within
+    SELECT_AP_TOL of the same CLI on the CPU; export_weights --check of the
+    last checkpoint to .pth and to .npz.  Returns K1's launches."""
+    import tempfile
+
+    from fdt_torch.cli import export_weights, select_checkpoint
+
+    dev = str(device)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        anno = write_train_set(tmp)
+        ck = tmp / "ck"
+        chunks = _timed_chunks(
+            ["--net", "try3", "--journal", "try3", "--journal-scale", str(CHAIN_SCALE),
+             "--chunk", str(CHAIN_CHUNK), "--start_iter", str(CHAIN_START),
+             "--resume", str(TRY3_WEIGHTS), "--stall-retries", "0", "--save_folder", str(ck),
+             "--device", dev, "--input_size", str(SIZE), "--batch_size", str(CHAIN_BATCH),
+             "--annoPath", str(anno)], dev)
+        names, steps = [], []  # the first chunk starts from an npz: its step from 0
+        for p in sorted(ck.glob(CHECKPOINTS)):
+            names.append(p.name)
+            with np.load(p / "opt_state.npz") as z:
+                steps.append(int(z["step"]))
+        if len(chunks) < 2 or names != ["try3_pyramid_4", "try3_pyramid_6"] or steps != [2, 4]:
+            raise AssertionError(f"train_chained: {len(chunks)} chunks, checkpoints {names}, "
+                                 f"steps {steps}")
+        _phase("tooling_chained", t0, chunks=len(chunks),
+               chunk_s=[round(s, 3) for s, _ in chunks],
+               loop_s=[c["wall_s"] for _, c in chunks],
+               startup_s=[round(s - c["wall_s"], 3) for s, c in chunks])
+
+        t0 = time.perf_counter()
+        val = write_face_val_set(tmp, SELECT_VAL_IMAGES)
+        argv = ["--net", "try3", "--checkpoints", str(ck / CHECKPOINTS), "--val", str(val)]
+        aps = {}
+        for where in (dev, "cpu"):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                _, k1 = _k1_during(lambda w=where: select_checkpoint.main(argv + ["--device", w]))
+            aps[where] = json.loads(buf.getvalue().splitlines()[-1])
+            if where == dev:
+                select_k1 = k1
+        if select_k1 != len(steps) * SELECT_VAL_IMAGES:
+            raise AssertionError(f"select_checkpoint: {select_k1} K1 launches")
+        diff = {k: abs(v - aps["cpu"]["aps"][k]) for k, v in aps[dev]["aps"].items()}
+        if (aps[dev]["aps"].keys() != aps["cpu"]["aps"].keys()
+                or max(diff.values()) > SELECT_AP_TOL):
+            raise AssertionError(f"select_checkpoint: card {aps[dev]} against CPU {aps['cpu']}")
+        _phase("tooling_select", t0, aps=json.dumps(aps[dev]["aps"]).replace(" ", ""),
+               cpu_aps=json.dumps(aps["cpu"]["aps"]).replace(" ", ""),
+               max_ap_diff=f"{max(diff.values()):.3g}", best=aps[dev]["best"], k1=select_k1)
+
+        t0 = time.perf_counter()
+        last = str(sorted(ck.glob(CHECKPOINTS))[-1])
+        export_k1, lines = 0, []
+        for out in (tmp / "try3.pth", tmp / "try3.npz"):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                _, k1 = _k1_during(lambda o=out: export_weights.main(
+                    ["--checkpoint", last, "--out", str(o), "--net", "try3", "--check",
+                     "--device", dev]))
+            export_k1 += k1
+            lines.append(buf.getvalue().strip().splitlines()[-1])
+            if not out.exists() or not lines[-1].startswith("check:") or k1 != 1:
+                raise AssertionError(f"export_weights: {buf.getvalue()!r}, {k1} K1 launches")
+        _phase("tooling_export", t0, checks=json.dumps(lines), k1=export_k1)
+    return select_k1 + export_k1
+
+
+def phase_inception(device) -> dict:
+    """Inception-ResNet-v2 at full depth on the card: seeded_inception at
+    299², batch 8, float32 "highest" (TF32 off), held to the CPU's forward
+    of the first 2 images (check_inception); then ms a batch by CUDA events,
+    images/s, and one profiled batch's device ms by part and idle share."""
+    from fdt_torch.infer.pyramidbox import tf32_for
+
+    t0 = time.perf_counter()
+    model = seeded_inception()
+    images = inception_images(INCEPTION_BATCH)
+    with torch.no_grad():
+        want = model(images[:INCEPTION_CPU_BATCH])
+        model = model.to(device)
+        x = images.to(device)
+        with _tf32(True), tf32_for("highest"):
+            got = model(x)
+            check = check_inception(got[:INCEPTION_CPU_BATCH], want)
+            end = time.perf_counter() + WARMUP_S
+            while time.perf_counter() < end:
+                model(x)
+            ms = min(_cuda_ms(lambda: model(x), 5) for _ in range(3))
+            split = _time_split(lambda: model(x))
+    card = card_line()
+    print("[inception] " + json.dumps({
+        "batch": INCEPTION_BATCH, "size": INCEPTION_SIZE, "precision": "highest",
+        "ms_a_batch": round(ms, 3), "images_per_s": round(INCEPTION_BATCH * 1e3 / ms, 2),
+        "profiled_wall_ms": round(split["wall_ms"], 3),
+        "device_ms": round(split["device_ms"], 3),
+        "idle_pct": None if split["idle_pct"] is None else round(split["idle_pct"], 1),
+        "parts_ms": {k: round(v, 3) for k, v in split["parts"].items()},
+        "top": [[name[:60], round(v, 3)] for name, v in split["top"][:4]],
+        "card": card}), flush=True)
+    _phase("inception", t0, rel_err=f"{check['rel_err']:.3g}", spread=f"{check['spread']:.3g}",
+           ms=f"{ms:.3f}")
+    del model, x
+    torch.cuda.empty_cache()
+    return {"ms": ms, **check}
+
+
+def device_facts() -> dict:
+    """What the distribution slice needs to know of this machine: torch's
+    and nvidia-smi's card counts, NCCL's presence and version."""
+    smi = subprocess.run(["nvidia-smi", "-L"], capture_output=True, text=True, timeout=60)
+    nccl = None
+    try:
+        nccl = ".".join(map(str, torch.cuda.nccl.version()))
+    except (AttributeError, RuntimeError) as e:
+        nccl = f"unavailable: {e}"
+    return {"torch_device_count": torch.cuda.device_count(),
+            "nvidia_smi_gpus": sum(ln.startswith("GPU ") for ln in smi.stdout.splitlines()),
+            "nccl_available": torch.distributed.is_available()
+            and torch.distributed.is_nccl_available(),
+            "nccl_version": nccl}
+
+
 @contextlib.contextmanager
 def warnings_kept():
     """Collect the warnings of the body (the cascade's saturation notes)."""
@@ -4685,6 +5066,10 @@ def main() -> int:
     demo_launches = phase_video_demo(video_det, floor, facebox_det, device, frames)
     train_launches = phase_train(device)
     families_launches = phase_train_families(device)
+    interop_launches = phase_interop(device)
+    tooling_launches = phase_tooling(device)
+    phase_inception(device)
+    print("[device] " + json.dumps(device_facts()), flush=True)
 
     # PyTorch has no NMS call (and torchvision is not installed) and no
     # greedy-association call: no library_ms.  K4's wgmma variant and K5 at
@@ -4715,7 +5100,8 @@ def main() -> int:
         "replaces": "fdt/ops/pallas_nms.py:69",
         "launches": (launches + int8_launches["k1"] + mtcnn_launches + track_k1_launches
                      + http_launches + eval_launches + host_launches + video_k1
-                     + demo_launches + train_launches + families_launches),
+                     + demo_launches + train_launches + families_launches
+                     + interop_launches + tooling_launches),
         "max_abs_err": max(k1["max_abs_err"], boxes_err, mtcnn_err, track_k1_err,
                            video_k1_err),
         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],

@@ -10,8 +10,9 @@ Layering mirrors fdt's, bottom → top:
                       tracker's slot state and plain greedy association
   fdt_torch.ops       hand-written CUDA kernels (built with nvcc, bound with ctypes)
   fdt_torch.models    nn.Module model zoo (NCHW: PyramidBox-ResNet50, the mobile
-                      variants try1–try5, FaceBoxes, MTCNN's PNet/RNet/ONet) and
-                      the flax-npz loader
+                      variants try1–try5, FaceBoxes, MTCNN's PNet/RNet/ONet,
+                      Inception-ResNet-v2), the flax-npz loader and reference
+                      torch state dicts both ways
   fdt_torch.infer     end-to-end detection (preprocess → forward → decode → NMS)
                       and the MTCNN device cascade
   fdt_torch.track     IoU tracking: the host tracker, the device association
@@ -22,6 +23,8 @@ Layering mirrors fdt's, bottom → top:
                       curves
   fdt_torch.apps      micro-batching DetectionService (pyramidbox, facebox, mtcnn)
                       and its HTTP front end
+  fdt_torch.train     trainers of every family, checkpoints, the training loop
+  fdt_torch.utils     the stall watchdog and the debug visualizers
   fdt_torch.cli       command-line entry points (python -m fdt_torch.cli.<name>)
 
 Entry points run on the CUDA card unless the caller passes device="cpu".

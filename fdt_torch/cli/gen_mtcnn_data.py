@@ -12,10 +12,11 @@ Stages:
   python -m fdt_torch.cli.gen_mtcnn_data rnet --anno wider_anno.txt \\
       --pnet_ckpt model_store/pnet_epoch_10
 
-fdt falls back to the reference's .pt nets, which the port cannot read: it
-requires the checkpoints, as checkpoint directories of the port or
-variables npz files in fdt's format.  The nets a stage never calls are the
-stage trainer's initialisation.  The mining runs the host cascade
+The checkpoints are checkpoint directories of the port, variables npz
+files in fdt's format or the reference's .pt files.  They are required:
+fdt falls back to the reference's own .pt nets, which this repo does not
+hold.  The nets a stage never calls are the stage trainer's
+initialisation.  The mining runs the host cascade
 (fdt_torch.infer.mtcnn.MTCNNDetector) on the CUDA card unless --device cpu.
 """
 from __future__ import annotations
@@ -34,9 +35,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prefix", default="")
     ap.add_argument("--out", default="mtcnn_data/")
     ap.add_argument("--pnet_ckpt", default=None,
-                    help="trained PNet: a checkpoint directory or a variables npz")
+                    help="trained PNet: a checkpoint directory, a variables npz or a .pt")
     ap.add_argument("--rnet_ckpt", default=None,
-                    help="trained RNet (stage onet): a checkpoint directory or a variables npz")
+                    help="trained RNet (stage onet): a checkpoint directory, a variables npz "
+                         "or a .pt")
     ap.add_argument("--files", nargs="*", help="anno lists for assemble")
     ap.add_argument("--seed", default=0, type=int)
     add_device_flag(ap)
@@ -70,8 +72,8 @@ def main(argv=None) -> int:
     else:
         if args.pnet_ckpt is None or (args.stage == "onet" and args.rnet_ckpt is None):
             need = "--pnet_ckpt" if args.stage == "rnet" else "--pnet_ckpt and --rnet_ckpt"
-            raise SystemExit(f"{args.stage}: {need} required (the reference's .pt nets "
-                             "that fdt falls back to are not readable here)")
+            raise SystemExit(f"{args.stage}: {need} required (fdt falls back to the "
+                             "reference's .pt nets, which the repo does not hold)")
         det = mining_detector(args.pnet_ckpt, args.rnet_ckpt if args.stage == "onet" else None,
                               args.device)
         if args.stage == "rnet":

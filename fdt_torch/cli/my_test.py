@@ -17,7 +17,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--net", default="repo",
                     choices=["repo", "try1", "try2", "try3", "try4", "try5"])
-    ap.add_argument("--weights", default=None, help="variables npz")
+    ap.add_argument("--weights", default=None, help="variables npz or torch .pth")
     ap.add_argument("--threshold", default=0.0, type=float)
     ap.add_argument("--anno", default="./image_and_anno/anno/gen_anno_file_val")
     ap.add_argument("--data_save_folder", default="./draw_curve/data/")

@@ -1,6 +1,10 @@
 """FaceBoxes WIDER-FACE val evaluation (counterpart of
 scripts/my_test_facebox.py, with the same flags and dump name).
 
+--weights is a variables npz in fdt's format or a reference .pth/.pt state
+dict.  It is required: fdt's default, the reference's faceboxes.pt, is not
+in this repo.
+
   python -m fdt_torch.cli.my_test_facebox --weights faceboxes.npz \
       --anno image_and_anno/anno/gen_anno_file_val
 """
@@ -13,7 +17,7 @@ from fdt_torch.cli._common import add_device_flag, print_eval_summary
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--weights", required=True, help="variables npz")
+    ap.add_argument("--weights", required=True, help="variables npz or torch .pth/.pt")
     ap.add_argument("--anno", default="./image_and_anno/anno/gen_anno_file_val")
     ap.add_argument("--data_save_folder", default="./draw_curve/data/")
     ap.add_argument("--limit", default=None, type=int)

@@ -2,7 +2,9 @@
 with the same flags and dump name).
 
 fdt's script runs its host cascade; the port runs its device cascade
-(MTCNNDeviceCascade), whose keep sets are the host cascade's.
+(MTCNNDeviceCascade), whose keep sets are the host cascade's.  The nets are
+variables npz files in fdt's format or the reference's .pt files; they are
+required, as fdt's defaults (the reference's .pt files) are not in this repo.
 
   python -m fdt_torch.cli.my_test_mtcnn --pnet pnet.npz --rnet rnet.npz \
       --onet onet.npz --anno image_and_anno/anno/gen_anno_file_val
@@ -17,9 +19,9 @@ from fdt_torch.cli._common import add_device_flag, print_eval_summary
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--pnet", required=True, help="PNet variables npz")
-    ap.add_argument("--rnet", required=True, help="RNet variables npz")
-    ap.add_argument("--onet", required=True, help="ONet variables npz")
+    ap.add_argument("--pnet", required=True, help="PNet variables npz or .pt")
+    ap.add_argument("--rnet", required=True, help="RNet variables npz or .pt")
+    ap.add_argument("--onet", required=True, help="ONet variables npz or .pt")
     ap.add_argument("--min_face", default=24.0, type=float)  # My_test_mtcnn.py:13
     ap.add_argument("--anno", default="./image_and_anno/anno/gen_anno_file_val")
     ap.add_argument("--data_save_folder", default="./draw_curve/data/")

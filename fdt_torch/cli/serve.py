@@ -6,9 +6,10 @@ card (counterpart of scripts/serve.py, with the same flags).
   curl -s -X POST --data-binary @face.png localhost:8000/detect
   curl -s localhost:8000/healthz
 
-Weights are variables npz files in fdt's format.  `--quant int8` serves the
-pyramid or FaceBoxes family with int8 convolutions (kernels K5 and K4 on the
-card) and is refused for the mtcnn cascade, as in fdt.  --dp_devices is
+Weights are variables npz files in fdt's format or reference .pth/.pt
+state dicts.  `--quant int8` serves the pyramid or FaceBoxes family with int8
+convolutions (kernels K5 and K4 on the card) and is refused for the mtcnn
+cascade, as in fdt.  --dp_devices is
 accepted and refused: data-parallel serving is not ported yet.
 """
 from __future__ import annotations
@@ -39,7 +40,7 @@ def build_service(args):
             args.weights, device=args.device, quant=args.quant), **kw)
     if args.quant:
         raise SystemExit("--quant is not supported for the mtcnn cascade")
-    paths = args.weights.split(",")  # pnet,rnet,onet variables npz files
+    paths = args.weights.split(",")  # pnet,rnet,onet: npz or .pt files
     if len(paths) != 3:
         raise SystemExit("--weights for mtcnn must be 'pnet.npz,rnet.npz,"
                          f"onet.npz' (got {len(paths)} paths)")
@@ -58,7 +59,7 @@ def main(argv=None):
                     choices=["pyramid", "facebox", "mtcnn"])
     ap.add_argument("--net", default="repo", help="pyramid variant")
     ap.add_argument("--weights", default=None,
-                    help="variables npz; for --detector mtcnn: "
+                    help="variables npz or torch .pth/.pt; for --detector mtcnn: "
                          "'pnet.npz,rnet.npz,onet.npz'")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8000)

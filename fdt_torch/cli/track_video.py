@@ -28,7 +28,7 @@ def main(argv=None):
     ap.add_argument("video", help="directory of the video's frames (the port decodes no "
                                   "video file)")
     ap.add_argument("--net", default="repo")
-    ap.add_argument("--weights", default=None, help="variables npz")
+    ap.add_argument("--weights", default=None, help="variables npz or torch .pth")
     ap.add_argument("--batch", default=8, type=int)
     ap.add_argument("--out", default=None, help="defaults to <video>.npy")
     ap.add_argument("--device_tracker", action="store_true",

@@ -4,12 +4,12 @@ flags, and --device).
   python -m fdt_torch.cli.train_net2net --train intermedia --student try1 \\
       --teacher_weights net_weight/repo_mini.npz
 
-A frozen ResNet50 PyramidBox teacher (--teacher_weights: a variables npz or
-a checkpoint directory of the port) teaches a xavier-initialised try1 or
-try2 student on WIDER-FACE batches at 640².  fdt's default teacher,
-./net_weight/Res50_pyramid.pth, is not in the repo and reading a .pth is
-not ported yet (ROADMAP Queue 1 item 4): the default here is the repo's
-net_weight/repo_mini.npz.  Every --save_point iterations a checkpoint
+A frozen ResNet50 PyramidBox teacher (--teacher_weights: a variables npz,
+a checkpoint directory of the port or a reference .pth, read as fdt reads
+it, strict=False) teaches a xavier-initialised try1 or try2 student on
+WIDER-FACE batches at 640².  fdt's default teacher,
+./net_weight/Res50_pyramid.pth, is not in the repo: the default here is the
+repo's net_weight/repo_mini.npz.  Every --save_point iterations a checkpoint
 `<save_folder>/<mode>_net_<it>` and the losses `<mode>_loss_<it>.npy`; a
 chained run resumes with --start_iter and --resume.  Runs on the CUDA card
 unless --device cpu.
@@ -32,7 +32,8 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["intermedia", "source", "overall"])
     ap.add_argument("--student", default="try1", choices=["try1", "try2"])
     ap.add_argument("--teacher_weights", default="net_weight/repo_mini.npz",
-                    help="a variables npz or a checkpoint directory (a .pth is refused)")
+                    help="a variables npz, a checkpoint directory or a torch .pth "
+                         "(fdt's default, ./net_weight/Res50_pyramid.pth, is absent)")
     ap.add_argument("--batch_size", default=8, type=int)
     ap.add_argument("--lr", default=1e-3, type=float)
     ap.add_argument("--iter", default=500000, type=int)
@@ -66,7 +67,7 @@ def main(argv=None) -> int:
     from fdt_torch.train.net2net import Net2NetTrainer
     from fdt_torch.utils.watchdog import StallWatchdog
 
-    teacher = load_model_weights(args.teacher_weights, build_pyramidbox("repo"))
+    teacher = load_model_weights(args.teacher_weights, build_pyramidbox("repo"), strict=False)
     trainer = Net2NetTrainer(xavier_init(build_pyramidbox(args.student), 0), teacher,
                              args.train, momentum=args.momentum, input_size=INPUT_SIZE,
                              device=args.device)

@@ -8,6 +8,11 @@ and defaults; --device replaces --platform).
 Runs on the CUDA card unless --device cpu.  Ends with one `[train] {...}`
 JSON line: iterations, wall seconds, the seconds the loop waited on the
 prefetch queue and the host's augmentation rate.
+
+--journal NAME replays a schedule of the reference's experiment journal
+through fdt_torch.cli.train_chained (each phase's lr / momentum / batch_size
+as chained processes), passing on the flags fdt's script passes
+(scripts/train_pyramid.py:98-121), --device in place of --platform.
 """
 from __future__ import annotations
 
@@ -19,7 +24,6 @@ from fdt_torch.cli._common import add_device_flag
 
 # flags fdt's CLI has that this one refuses, and the slice that brings them
 _REFUSED = {
-    "journal": "the journal replay (scripts/train_chained.py) is not ported yet",
     "dp_devices": "data parallelism is ROADMAP Queue 1 item 5 (distribution)",
     "sp_devices": "spatial partitioning is ROADMAP Queue 1 item 5 (distribution)",
     "num_processes": "multi-process training is ROADMAP Queue 1 item 5 (distribution)",
@@ -37,8 +41,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--save_point", default=3000, type=int)
     ap.add_argument("--start_iter", default=0, type=int)
     ap.add_argument("--resume", default=None,
-                    help="a variables npz (fdt's format) or a checkpoint directory "
-                         "of this CLI (full state: momentum and step too)")
+                    help="a variables npz (fdt's format), a torch .pth (loaded as fdt "
+                         "loads it, strict=False) or a checkpoint directory of this CLI "
+                         "(full state: momentum and step too)")
     ap.add_argument("--eval_freq", default=0, type=int)
     ap.add_argument("--stall_timeout", default=0, type=float,
                     help="seconds without synced step progress before the process "
@@ -62,7 +67,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--process_id", default=0, type=int)
     ap.add_argument("--coordinator", default="127.0.0.1:12360")
     ap.add_argument("--max_gt", default=None, type=int, help="GT pad bucket")
-    ap.add_argument("--journal", default=None, help="refused (not ported)")
+    ap.add_argument("--journal", default=None,
+                    help="replay a journal schedule from draw_curve/log (repo | try3 | "
+                         "try1) through fdt_torch.cli.train_chained")
     ap.add_argument("--annoPath", default="./image_and_anno/anno/gen_anno_file_train")
     ap.add_argument("--evalAnnoPath", default="./image_and_anno/anno/gen_anno_file_val")
     ap.add_argument("--save_folder", default="weights_of_mine/")
@@ -71,16 +78,37 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse(args) -> None:
-    given = {"journal": args.journal is not None, "dp_devices": args.dp_devices != 0,
-             "sp_devices": args.sp_devices > 1, "num_processes": args.num_processes > 1}
+    given = {"dp_devices": args.dp_devices != 0, "sp_devices": args.sp_devices > 1,
+             "num_processes": args.num_processes > 1}
     for flag, on in given.items():
         if on:
             raise SystemExit(f"--{flag}: {_REFUSED[flag]}")
 
 
+def journal_argv(args) -> list[str]:
+    """train_chained's arguments for --journal: the flags fdt's script passes
+    on (not --save_point: the chained runner derives it a chunk)."""
+    argv = ["--net", args.net, "--journal", args.journal, "--iter", str(args.iter),
+            "--start_iter", str(args.start_iter), "--save_folder", args.save_folder,
+            "--annoPath", args.annoPath]
+    if args.resume:
+        argv += ["--resume", args.resume]
+    argv += ["--input_size", str(args.input_size)]
+    if args.device:
+        argv += ["--device", args.device]
+    if args.stall_timeout:
+        argv += ["--stall_timeout", str(args.stall_timeout)]
+    if args.startup_timeout:
+        argv += ["--startup_timeout", str(args.startup_timeout)]
+    return argv
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     _refuse(args)
+    if args.journal:
+        from fdt_torch.cli import train_chained
+        return train_chained.main(journal_argv(args))
 
     import torch
 
@@ -97,7 +125,7 @@ def main(argv=None) -> int:
                              dtype=torch.bfloat16 if args.bf16 else torch.float32,
                              device=args.device)
     if args.resume:
-        load_weights(args.resume, trainer)
+        load_weights(args.resume, trainer, strict=False)
     os.makedirs(args.save_folder, exist_ok=True)
     cfg = TrainConfig(batch_size=args.batch_size, lr=args.lr, total_iters=args.iter,
                       save_point=args.save_point, eval_freq=args.eval_freq,

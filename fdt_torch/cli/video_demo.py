@@ -4,8 +4,9 @@ MTCNN/Video.py).
 
 --source is a directory of frames (the port decodes no camera or video
 file); --out a directory for the overlaid frames.  The port reads weights
-from variables npz files: --weights for PyramidBox and FaceBoxes, --pnet,
---rnet and --onet for MTCNN (fdt's script reads the reference's .pt files).
+from variables npz files or reference .pth/.pt state dicts: --weights for
+PyramidBox and FaceBoxes, --pnet, --rnet and --onet for MTCNN (fdt's script
+defaults to the reference's .pt files, which this repo does not hold).
 
   python -m fdt_torch.cli.video_demo --detector pyramid --net repo \
       --weights net_weight/repo_mini.npz --source clip --out clip_demo
@@ -21,10 +22,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--detector", default="pyramid", choices=["pyramid", "facebox", "mtcnn"])
     ap.add_argument("--net", default="repo", help="pyramid variant")
-    ap.add_argument("--weights", default=None, help="variables npz (pyramid, facebox)")
-    ap.add_argument("--pnet", default=None, help="MTCNN: PNet variables npz")
-    ap.add_argument("--rnet", default=None, help="MTCNN: RNet variables npz")
-    ap.add_argument("--onet", default=None, help="MTCNN: ONet variables npz")
+    ap.add_argument("--weights", default=None, help="variables npz or .pth (pyramid, facebox)")
+    ap.add_argument("--pnet", default=None, help="MTCNN: PNet variables npz or .pt")
+    ap.add_argument("--rnet", default=None, help="MTCNN: RNet variables npz or .pt")
+    ap.add_argument("--onet", default=None, help="MTCNN: ONet variables npz or .pt")
     ap.add_argument("--source", required=True, help="directory of frames")
     ap.add_argument("--out", default=None, help="output directory of PNG frames")
     ap.add_argument("--display", action="store_true")
@@ -45,7 +46,7 @@ def main(argv=None):
                                                        device=args.device), **kw)
     elif args.detector == "facebox":
         if not args.weights:
-            ap.error("--detector facebox needs --weights (a FaceBoxes variables npz)")
+            ap.error("--detector facebox needs --weights (a FaceBoxes variables npz or .pth)")
         from fdt_torch.models.loader import load_facebox_detector
         fps = facebox_demo(load_facebox_detector(args.weights, device=args.device), **kw)
     else:

@@ -39,6 +39,22 @@ def iou_matrix(box_a: torch.Tensor, box_b: torch.Tensor) -> torch.Tensor:
     return inter / (area_a + area_b - inter)
 
 
+def pair_distance(box_a: torch.Tensor, box_b: torch.Tensor) -> torch.Tensor:
+    """Center+size pseudo-distance of [..., N, 4] against [..., M, 4] point-form
+    boxes → [..., N, M] (fdt/geometry/boxes.py:60-77; the tracker's non-IoU
+    mode, calc_performance.py:34-51):
+      dz = mean(size_a - size_b);  dxy = center_b - center_a
+      dist = (dz² + dx² + dy²) ** 0.25
+    """
+    a_hi, a_lo = box_a[..., :, None, 2:], box_a[..., :, None, :2]
+    b_hi, b_lo = box_b[..., None, :, 2:], box_b[..., None, :, :2]
+    d_xy = (b_hi + b_lo) / 2 - (a_hi + a_lo) / 2
+    d_sz = (a_hi - a_lo) - (b_hi - b_lo)
+    d_z = (d_sz[..., 0] + d_sz[..., 1]) / 2
+    dis = d_z * d_z + d_xy[..., 0] * d_xy[..., 0] + d_xy[..., 1] * d_xy[..., 1]
+    return torch.pow(dis, 0.25)
+
+
 def encode(matched: torch.Tensor, priors: torch.Tensor, variances) -> torch.Tensor:
     """SSD variance encoding of matched GT (point form) against priors (center
     form): the inverse of :func:`decode`."""

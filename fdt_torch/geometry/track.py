@@ -25,6 +25,7 @@ import dataclasses
 import torch
 
 from fdt_torch.config import TrackerConfig
+from fdt_torch.geometry.boxes import pair_distance
 
 # Dead-slot sentinel of the int32 creation counter: larger than any live key
 # (a float counter would lose integer precision past 2^24 spawned tracks)
@@ -63,12 +64,9 @@ def _iou_row(boxes: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
 
 
 def _distance_row(boxes: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
-    """Center+size pseudo-distance (calculate_distance, calc_performance.py:34-51)."""
-    d_xy = (ref[2:] + ref[:2]) / 2 - (boxes[:, 2:] + boxes[:, :2]) / 2
-    d_sz = (boxes[:, 2:] - boxes[:, :2]) - (ref[2:] - ref[:2])
-    d_z = (d_sz[:, 0] + d_sz[:, 1]) / 2
-    dis = d_z * d_z + d_xy[:, 0] * d_xy[:, 0] + d_xy[:, 1] * d_xy[:, 1]
-    return torch.pow(dis, 0.25)
+    """Center+size pseudo-distance of [N,4] boxes to one box (pair_distance,
+    calculate_distance of calc_performance.py:34-51)."""
+    return pair_distance(boxes, ref[None])[:, 0]
 
 
 def associate_chunk_plain(slots: _Slots, boxes: torch.Tensor, scores: torch.Tensor,

@@ -254,9 +254,9 @@ class MTCNNDetector:
 
 def load_mtcnn_detector(p_path: str, r_path: str, o_path: str,
                         cfg: MTCNNConfig = MTCNN, **kw) -> MTCNNDetector:
-    """An MTCNNDetector from three variables npz files in fdt's format (PNet,
-    RNet, ONet), as models.load_mtcnn_cascade reads them.  **kw go to the
-    detector (precision=, device=; None is the card)."""
-    from fdt_torch.models.loader import load_mtcnn_nets, load_npz
-    return MTCNNDetector(*load_mtcnn_nets(load_npz(p_path), load_npz(r_path),
-                                          load_npz(o_path)), cfg, **kw)
+    """An MTCNNDetector from three weight files (PNet, RNet, ONet): variables
+    npz files in fdt's format or the reference's `.pt` files, loaded strict
+    (fdt/infer/mtcnn.py:272-290), as models.load_mtcnn_cascade reads them.
+    **kw go to the detector (precision=, device=; None is the card)."""
+    from fdt_torch.models.loader import load_mtcnn_files
+    return MTCNNDetector(*load_mtcnn_files(p_path, r_path, o_path), cfg, **kw)

@@ -26,6 +26,12 @@ The way back (`to_jax_variables`, `save_variables_npz`) writes what the
 port trained in fdt's layout, which fdt's load_variables reads.
 Every PyramidBox variant, FaceBoxes and the MTCNN nets load this way
 (fdt/models/loader.py:102-121 for the detector front doors).
+
+The front doors also read a reference-named torch state dict (`.pth`/`.pt`,
+models.torch_convert), as fdt's load_variables does: PyramidBox with
+strict=False (fdt/models/loader.py:73), FaceBoxes and MTCNN strict
+(fdt/models/loader.py:120, fdt/infer/mtcnn.py:286-288).  save_variables_pth
+writes one (fdt/models/loader.py:47-57).
 """
 from __future__ import annotations
 
@@ -37,6 +43,10 @@ from fdt_torch.models.common import NestedSequential
 from fdt_torch.models.facebox import FaceBox
 from fdt_torch.models.mtcnn import ONet, PNet, RNet
 from fdt_torch.models.pyramidbox_mobile import build_pyramidbox
+from fdt_torch.models.torch_convert import (load_reference_state_dict, load_torch_state_dict,
+                                            reference_state_dict)
+
+TORCH_SUFFIXES = (".pth", ".pt")
 
 _LEAF_TO_TORCH = {
     "kernel": "weight",
@@ -204,22 +214,44 @@ def load_npz(path: str) -> dict:
     return out
 
 
-def _load_strict(model: nn.Module, path: str) -> nn.Module:
-    model.load_state_dict(from_jax_variables(load_npz(path)), strict=True)
-    return model.eval()
+def save_variables_pth(model_or_variables, path: str) -> None:
+    """Write a reference-named torch state dict (fdt's save_variables_pth,
+    fdt/models/loader.py:47-57), which the reference's strict
+    load_state_dict takes: of a model (torch_convert.reference_state_dict,
+    MTCNN's dead heads included) or of a {"params", "batch_stats"} tree in
+    fdt's layout (from_jax_variables: a PyramidBox or FaceBoxes tree)."""
+    sd = (reference_state_dict(model_or_variables)
+          if isinstance(model_or_variables, nn.Module)
+          else from_jax_variables(model_or_variables))
+    torch.save(sd, path)
+
+
+def load_weights_file(model: nn.Module, path: str, strict: bool = True) -> nn.Module:
+    """`model` with the weights of `path` (its mode and device unchanged):
+    a variables npz in fdt's format, loaded strict, or a reference-named
+    torch state dict (`.pth`/`.pt`), loaded by load_reference_state_dict
+    with `strict`."""
+    if str(path).endswith(TORCH_SUFFIXES):
+        load_reference_state_dict(model, load_torch_state_dict(path), strict=strict)
+    else:
+        model.load_state_dict(from_jax_variables(
+            load_npz(path), getattr(model, "flatten_chw", None)), strict=True)
+    return model
 
 
 def load_pyramidbox(path: str, variant: str = "repo") -> nn.Module:
     """A full-depth PyramidBox of `variant` (eval mode, CPU, float32) with
-    the weights of a variables npz, loaded strict."""
-    return _load_strict(build_pyramidbox(variant), path)
+    the weights of a variables npz (strict) or of a reference `.pth`
+    (strict=False, as fdt's load_variables: a missing key is zero)."""
+    return load_weights_file(build_pyramidbox(variant), path, strict=False).eval()
 
 
 def load_pyramidbox_detector(variant: str, weights: str | None, **kw):
-    """A PyramidBoxDetector for any variant; torch's default initialisation
-    when `weights` is None (fdt's is flax's).  **kw go to the detector
-    (detect_cfg=, budget=, dtype=, device=, precision=, quant=); with
-    quant="int8" the convs are quantized from the loaded float32 weights."""
+    """A PyramidBoxDetector for any variant with the weights of `weights`
+    (load_pyramidbox); torch's default initialisation when it is None
+    (fdt's is flax's).  **kw go to the detector (detect_cfg=, budget=,
+    dtype=, device=, precision=, quant=); with quant="int8" the convs are
+    quantized from the loaded float32 weights."""
     from fdt_torch.infer.pyramidbox import PyramidBoxDetector
     model = (load_pyramidbox(weights, variant) if weights
              else build_pyramidbox(variant).eval())
@@ -227,12 +259,12 @@ def load_pyramidbox_detector(variant: str, weights: str | None, **kw):
 
 
 def load_facebox_detector(weights: str, **kw):
-    """A FaceBoxDetector with the weights of a variables npz, loaded strict.
-    **kw go to the detector (budget=, out_k=, dtype=, device=, precision=,
-    quant=); with quant="int8" the convs are quantized from the loaded
-    float32 weights."""
+    """A FaceBoxDetector with the weights of a variables npz or a reference
+    `.pth`/`.pt`, loaded strict.  **kw go to the detector (budget=, out_k=,
+    dtype=, device=, precision=, quant=); with quant="int8" the convs are
+    quantized from the loaded float32 weights."""
     from fdt_torch.infer.facebox import FaceBoxDetector
-    return FaceBoxDetector(_load_strict(FaceBox(), weights), **kw)
+    return FaceBoxDetector(load_weights_file(FaceBox(), weights).eval(), **kw)
 
 
 def load_mtcnn_nets(pnet_vars, rnet_vars, onet_vars) -> tuple[nn.Module, ...]:
@@ -245,9 +277,15 @@ def load_mtcnn_nets(pnet_vars, rnet_vars, onet_vars) -> tuple[nn.Module, ...]:
     return tuple(nets)
 
 
+def load_mtcnn_files(p_path: str, r_path: str, o_path: str) -> tuple[nn.Module, ...]:
+    """(PNet, RNet, ONet) in eval mode, CPU, float32, each loaded strict from
+    a variables npz in fdt's format or a reference `.pt` file."""
+    return tuple(load_weights_file(net(), path).eval()
+                 for net, path in ((PNet, p_path), (RNet, r_path), (ONet, o_path)))
+
+
 def load_mtcnn_cascade(p_path: str, r_path: str, o_path: str, **kw):
-    """An MTCNNDeviceCascade from three variables npz files in fdt's format
-    (PNet, RNet, ONet).  **kw go to the cascade (device=None is the card)."""
+    """An MTCNNDeviceCascade from three weight files (PNet, RNet, ONet:
+    load_mtcnn_files).  **kw go to the cascade (device=None is the card)."""
     from fdt_torch.infer.mtcnn_device import MTCNNDeviceCascade
-    return MTCNNDeviceCascade(*load_mtcnn_nets(load_npz(p_path), load_npz(r_path),
-                                               load_npz(o_path)), **kw)
+    return MTCNNDeviceCascade(*load_mtcnn_files(p_path, r_path, o_path), **kw)

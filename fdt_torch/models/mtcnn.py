@@ -10,6 +10,12 @@ reference.  Each net returns float32 sigmoid probabilities and regressions.
 RNet and ONet flatten NCHW before their first Linear, as the reference does;
 fdt flattens NHWC, so the loader permutes that Linear's input columns
 (`flatten_chw` names the layer and the (C, H, W) it flattens).
+
+The reference's PNet and RNet also define a landmark head that their forward
+never runs (PNet.conv4_3, RNet.conv5_3; fdt/models/mtcnn.py:114-124).  The
+port does not build it: `reference_extras` names its tensors and shapes, which
+a reference state dict carries and models.torch_convert skips on a load and
+writes zero-filled on an export, as fdt's mtcnn_export_extras does.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ class PNet(nn.Module):
     regression map [B,4,H',W'])."""
 
     flatten_chw: dict = {}
+    reference_extras = {"conv4_3.weight": (10, 32, 1, 1), "conv4_3.bias": (10,)}
 
     def __init__(self):
         super().__init__()
@@ -41,6 +48,7 @@ class RNet(nn.Module):
     """24×24 refinement net → (probability [B,1], regression [B,4])."""
 
     flatten_chw = {"conv4": (64, 2, 2)}
+    reference_extras = {"conv5_3.weight": (10, 128), "conv5_3.bias": (10,)}
 
     def __init__(self):
         super().__init__()

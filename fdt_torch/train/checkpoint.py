@@ -24,8 +24,9 @@ import re
 import numpy as np
 import torch
 
-from fdt_torch.models.loader import (flax_paths, from_jax_variables, load_npz,
-                                     save_variables_npz, to_flax_array, to_jax_variables)
+from fdt_torch.models.loader import (TORCH_SUFFIXES, flax_paths, from_jax_variables,
+                                     load_npz, load_weights_file, save_variables_npz,
+                                     to_flax_array, to_jax_variables)
 
 VARIABLES, OPT_STATE = "variables.npz", "opt_state.npz"
 # torch optimizer state key → its opt_state.npz prefix (SGD, Adam)
@@ -99,35 +100,48 @@ def latest_checkpoint(directory: str, name: str):
     return best
 
 
-def read_variables(path: str) -> dict:
-    """A model's variables as fdt's {"params", "batch_stats"} tree: from a
-    variables npz in fdt's format or from a checkpoint directory of the
-    port.  A torch .pth/.pt state dict or an orbax directory is refused."""
+def _variables_file(path: str) -> str:
+    """A checkpoint directory's variables npz, or `path` itself when it is a
+    variables npz or a torch `.pth`/`.pt` state dict."""
     if os.path.isdir(path):
         if not os.path.exists(os.path.join(path, VARIABLES)):
             raise ValueError(f"{path}: no {VARIABLES} (an orbax directory is not "
                              "readable here)")
-        path = os.path.join(path, VARIABLES)
-    elif path.endswith((".pth", ".pt")):
-        raise ValueError(f"{path}: reading a torch state dict is not ported yet "
-                         "(ROADMAP Queue 1 item 4, checkpoint tooling and .pth interop); "
-                         "pass a variables npz or a checkpoint directory")
-    elif not path.endswith(".npz"):
-        raise ValueError(f"{path}: the port reads a variables npz or a checkpoint directory")
+        return os.path.join(path, VARIABLES)
+    if not path.endswith((".npz",) + TORCH_SUFFIXES):
+        raise ValueError(f"{path}: the port reads a variables npz, a torch .pth/.pt "
+                         "state dict or a checkpoint directory")
+    return path
+
+
+def read_variables(path: str, model: torch.nn.Module | None = None) -> dict:
+    """A model's variables as fdt's {"params", "batch_stats"} tree: from a
+    variables npz in fdt's format, a checkpoint directory of the port, or a
+    reference-named torch `.pth`/`.pt` state dict, which is read through
+    `model` (loaded strict into it, then to_jax_variables).  An orbax
+    directory is refused."""
+    path = _variables_file(path)
+    if path.endswith(TORCH_SUFFIXES):
+        if model is None:
+            raise ValueError(f"{path}: a torch state dict is read through the model it "
+                             "belongs to (pass model=)")
+        return to_jax_variables(load_weights_file(model, path))
     return load_npz(path)
 
 
-def load_model_weights(path: str, model: torch.nn.Module) -> torch.nn.Module:
-    """read_variables(path) loaded strict into `model`; returns it."""
-    with torch.no_grad():
-        model.load_state_dict(_model_state(model, read_variables(path)), strict=True)
-    return model
+def load_model_weights(path: str, model: torch.nn.Module,
+                       strict: bool = True) -> torch.nn.Module:
+    """The weights of a variables npz, a checkpoint directory or a torch
+    `.pth`/`.pt` (loader.load_weights_file; `strict` applies to the `.pth`,
+    an npz loads strict) loaded into `model`; returns it."""
+    return load_weights_file(model, _variables_file(path), strict)
 
 
-def load_weights(path: str, trainer) -> None:
-    """--resume of the port's CLIs: a checkpoint directory (full state) or a
-    variables npz in fdt's format (params and batch_stats only)."""
+def load_weights(path: str, trainer, strict: bool = True) -> None:
+    """--resume of the port's CLIs: a checkpoint directory (full state), or
+    a variables npz in fdt's format or a torch `.pth`/`.pt` state dict
+    (params and batch_stats only; `strict` applies to the `.pth`)."""
     if os.path.isdir(path):
         restore_checkpoint(path, trainer)
         return
-    load_model_weights(path, trainer.model)
+    load_model_weights(path, trainer.model, strict)

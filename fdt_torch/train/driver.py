@@ -42,6 +42,10 @@ class TrainConfig:
     startup_timeout: float = 0.0  # >0: the same, before the first synced step
 
 
+# seconds close() waits for the prefetch worker to finish the batch it builds
+JOIN_TIMEOUT_S = 60.0
+
+
 def prefetch_batches(dataset, batch_size: int, depth: int = 3, pin: bool = False,
                      stats: dict | None = None):
     """Endless epoch-shuffled batches, built on a background thread.
@@ -51,9 +55,11 @@ def prefetch_batches(dataset, batch_size: int, depth: int = 3, pin: bool = False
     whose parity tests feed both sides the same rounded batch), as a torch
     tensor, in pinned memory when `pin` so that the copy to the card is
     asynchronous.  `depth` bounds the queue.  A worker exception re-raises
-    in the consumer; closing the generator stops the worker.  `stats`, if
-    given, gets "augment_s" (the worker's seconds building batches) and
-    "augmented" (images built)."""
+    in the consumer; closing the generator stops the worker and waits for
+    it (a daemon thread still inside torch when the interpreter exits can
+    abort the process: "terminate called without an active exception").
+    `stats`, if given, gets "augment_s" (the worker's seconds building
+    batches) and "augmented" (images built)."""
     import queue
     import threading
 
@@ -87,9 +93,15 @@ def prefetch_batches(dataset, batch_size: int, depth: int = 3, pin: bool = False
                         return
                     t = time.perf_counter()
         except BaseException as e:  # noqa: BLE001 — relayed to the consumer
-            q.put(e)
+            while not stop.is_set():
+                try:
+                    q.put(e, timeout=0.2)
+                    break
+                except queue.Full:
+                    continue
 
-    threading.Thread(target=worker, daemon=True).start()
+    thread = threading.Thread(target=worker, daemon=True)
+    thread.start()
     try:
         while True:
             item = q.get()
@@ -98,6 +110,7 @@ def prefetch_batches(dataset, batch_size: int, depth: int = 3, pin: bool = False
             yield item
     finally:
         stop.set()
+        thread.join(timeout=JOIN_TIMEOUT_S)
 
 
 def run_pyramid_training(trainer: PyramidTrainer, train_anno: str, cfg: TrainConfig,

@@ -1,1 +1,1 @@
-"""Host utilities of the port (the stall watchdog)."""
+"""Host utilities of the port: the stall watchdog and the debug visualizers."""

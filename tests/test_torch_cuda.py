@@ -737,3 +737,38 @@ def test_mtcnn_train_step_on_card_matches_cpu(card, stage):
 
     _card_against_cpu(make, lambda t: [float(v) for v in t.train_step(*batch).values()], card,
                       change_rtol=2e-2, sign_share=1e-3)
+
+
+def test_pth_flagship_bit_equal_to_npz_on_card(card, tmp_path):
+    """The flagship from a .pth in fdt's flax_to_torch layout (written from
+    repo_mini.npz) detects on the card bit-equal to the npz-loaded one, K1
+    once a detect; a .pth written from the card model reloads bit-equal."""
+    from fdt_torch.models import (load_npz, load_pyramidbox, load_pyramidbox_detector,
+                                  save_variables_pth)
+    pth = str(tmp_path / "repo.pth")
+    save_variables_pth(load_npz(str(chip_smoke.WEIGHTS)), pth)
+    frames = torch.from_numpy(chip_smoke.flagship_batch()[:2]).to(card)
+    outs = []
+    for weights in (str(chip_smoke.WEIGHTS), pth):
+        det = load_pyramidbox_detector("repo", weights, device=card)
+        before = nms_op.launches.count
+        outs.append(det.detect_device(frames, conf_thresh=0.05))
+        torch.cuda.synchronize()
+        assert nms_op.launches.count == before + 1
+    assert torch.equal(outs[0], outs[1]) and (outs[0][:, 1, :, 0] > 0.05).any()
+    save_variables_pth(det.model, str(tmp_path / "again.pth"))
+    assert chip_smoke.same_state(load_pyramidbox(str(tmp_path / "again.pth")), det.model)
+
+
+def test_inception_on_card_matches_cpu(card):
+    """Inception-ResNet-v2 at full depth, 299², batch 2, float32 "highest"
+    (TF32 off), seeded weights: the card's logits within
+    chip_smoke.INCEPTION_TOL of the scale of the CPU's, not washed out."""
+    from fdt_torch.infer.pyramidbox import tf32_for
+    model = chip_smoke.seeded_inception()
+    images = chip_smoke.inception_images(2)
+    with torch.no_grad():
+        want = model(images)
+        with tf32_for("highest"):
+            got = model.to(card)(images.to(card))
+    chip_smoke.check_inception(got, want)

@@ -63,7 +63,10 @@ def test_every_module_imports_without_building_kernels():
             "fdt_torch.train.net2net", "fdt_torch.train.mtcnn_train",
             "fdt_torch.data.mtcnn_data", "fdt_torch.cli.train_facebox",
             "fdt_torch.cli.train_net2net", "fdt_torch.cli.train_mtcnn",
-            "fdt_torch.cli.gen_mtcnn_data"} <= set(names)
+            "fdt_torch.cli.gen_mtcnn_data", "fdt_torch.models.torch_convert",
+            "fdt_torch.models.inception_resnet_v2", "fdt_torch.cli.train_chained",
+            "fdt_torch.cli.export_weights", "fdt_torch.cli.select_checkpoint",
+            "fdt_torch.cli.gen_anno", "fdt_torch.utils.visualize"} <= set(names)
     for name in names:
         importlib.import_module(name)
     assert _build._lib is None

@@ -154,8 +154,8 @@ def test_cli_resumes_from_its_checkpoint(tmp_path, capsys):
         assert int(z["step"]) == 4
 
 
-@pytest.mark.parametrize("flag", [["--journal", "repo"], ["--dp_devices", "2"],
-                                  ["--sp_devices", "2"], ["--num_processes", "2"]])
+@pytest.mark.parametrize("flag", [["--dp_devices", "2"], ["--sp_devices", "2"],
+                                  ["--num_processes", "2"]])
 def test_cli_refuses_what_this_slice_does_not_bring(flag):
     with pytest.raises(SystemExit, match="not ported|Queue 1 item 5"):
         train_pyramid.main(flag)
