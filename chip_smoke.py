@@ -161,6 +161,19 @@ Phases, each printing one line with its seconds:
                within 1e-3 of the scale of the CPU's logits of 2 images, ms
                a batch (CUDA events) and images/s beside the card's name and
                power limit.
+ 22. dist    — data parallelism (fdt_torch.dist) on the one card: two gloo
+               ranks of the flagship's DP train step on cuda:0 (640², a
+               global batch of 4, float32 "highest"), bit-equal to each other
+               and held to the one-device step on the same rows; DP
+               inference on a 2-slot mesh of cuda:0 (the flagship at 640², 9
+               images): float32 against the unsharded detector at fdt's DP
+               tolerance, int8 bit-equal to the unsharded int8 detector on
+               each shard's rows (K1, K4 and K5 counted on the main path);
+               the DP step through NCCL at world size 1 (batch 2) against
+               the one-device step, both timed.  phase_dist_cards(n) runs
+               the same over n cards of one host (called by a script of its
+               own on a several-card machine, not part of the one-card main
+               path).
 Then a [device] line (torch's and nvidia-smi's card counts, NCCL's presence
 and version), a JSON line of the kernels and, last, {"ok": true, "device":
 {...}}.
@@ -4985,6 +4998,491 @@ def phase_inception(device) -> dict:
     return {"ms": ms, **check}
 
 
+DIST_BATCH, DIST_STEPS = 2, 2  # leg (a): the flagship's DP step at 640², float32
+DIST_GLOO_BATCH = 4  # leg (b): the global batch of two gloo ranks on one card
+DIST_IMAGES = 9  # leg (c): 9 images on a 2-slot mesh, so the last shard is padded
+DIST_ROW_TOL = 1.2e-3  # fdt's DP tolerance (rtol 1e-3, atol 2e-4) on values up to 1
+DIST_CONF = 0.05
+DIST_TIMEOUT_S = 180.0  # leg (b)'s shared deadline
+
+
+def dist_flagship(device, weights, size: int):
+    """The flagship trainer at size², float32 "highest", from repo_mini.npz."""
+    from fdt_torch.models import PyramidBox
+    from fdt_torch.train.loops import PyramidTrainer
+    model = PyramidBox()
+    model.load_state_dict(weights)
+    return PyramidTrainer(model, "repo", input_size=size, precision="highest", device=device)
+
+
+def dist_steps(trainer, batch, steps: int = DIST_STEPS) -> tuple[np.ndarray, dict]:
+    """(the steps' metrics [steps, 5], the variables after them)."""
+    from fdt_torch.models.loader import flat_variables, to_jax_variables
+    metrics = [[float(v) for v in trainer.train_step(*batch, TRAIN_LR).values()]
+               for _ in range(steps)]
+    return np.array(metrics), flat_variables(to_jax_variables(trainer.model))
+
+
+def check_dist_step(got, want, before: dict, what: str) -> dict:
+    """A DP step's (metrics, variables) against the one-device step's: losses
+    by TRAIN_LOSS_RTOL, each parameter's change within TRAIN_NORM_RTOL of the
+    largest change, the running statistics within TRAIN_STATS_RTOL of each
+    leaf's largest value.  Returns the errors; raises past a tolerance."""
+    (gm, gv), (wm, wv) = got, want
+    loss_err = (np.abs(gm - wm) / np.abs(wm)).max(axis=1)
+    for step, err in enumerate(loss_err):
+        if err > TRAIN_LOSS_RTOL[step]:
+            raise AssertionError(f"{what}: step {step + 1} losses {gm[step]} against {wm[step]}")
+    scale = max(np.abs(wv[k] - before[k]).max() for k in wv if k.startswith("params/"))
+    change = max(np.abs((gv[k] - before[k]) - (wv[k] - before[k])).max()
+                 for k in wv if k.startswith("params/")) / scale
+    stats = max(np.abs(gv[k] - wv[k]).max() / np.abs(wv[k]).max()
+                for k in wv if not k.startswith("params/"))
+    if change > TRAIN_NORM_RTOL or stats > TRAIN_STATS_RTOL:
+        raise AssertionError(f"{what}: parameter change {change} (of the largest), "
+                             f"running statistics {stats}")
+    return {"loss_rel_err": [float(e) for e in loss_err], "change_err_of_scale": float(change),
+            "stats_rel_err": float(stats)}
+
+
+def dist_rank_main(argv) -> int:
+    """One rank of a DP train job: `spec.json rank`.  spec: "coordinator",
+    "world", "out", "size", "batch" (the global batch), "backend" ("gloo"
+    or "nccl"), "devices" (one a rank) and "timed" (default true).  The
+    flagship on the rank's device, its rows of the global batch, DIST_STEPS
+    steps, then, timed and on a card, the ms of 3 more by CUDA events;
+    writes rank<r>.npz."""
+    from fdt_torch.dist import multihost
+    from fdt_torch.models.loader import load_pyramidbox
+    spec = json.loads(pathlib.Path(argv[0]).read_text())
+    rank = int(argv[1])
+    device, size = torch.device(spec["devices"][rank]), spec["size"]
+    multihost.initialize(spec["coordinator"], spec["world"], rank, device=device,
+                         backend=spec["backend"], timeout_s=DIST_TIMEOUT_S)
+    try:
+        trainer = dist_flagship(device, load_pyramidbox(str(WEIGHTS)).state_dict(), size)
+        lo, hi = multihost.process_batch_bounds(spec["batch"])
+        batch = tuple(x[lo:hi] for x in train_batch(TRAIN_SEED + 3, spec["batch"], size))
+        t0 = time.perf_counter()
+        metrics, variables = dist_steps(trainer, batch)
+        step_ms = 0.0
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if device.type == "cuda" and spec.get("timed", True):
+            step_ms = _cuda_ms(lambda: trainer.train_step(*batch, TRAIN_LR), 3)
+        np.savez(pathlib.Path(spec["out"]) / f"rank{rank}.npz", metrics=metrics,
+                 seconds=seconds, step_ms=step_ms,
+                 **{f"v/{k}": v for k, v in variables.items()})
+    finally:
+        multihost.shutdown()
+    return 0
+
+
+def run_dist_ranks(spec: dict) -> list:
+    """dist_rank_main as spec["world"] processes under one shared deadline;
+    [(metrics, variables, seconds, step_ms)] by rank.  Raises unless the
+    ranks' metrics and variables are bit-equal."""
+    import tempfile
+
+    from fdt_torch.dist import procutil
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "spec.json"
+        path.write_text(json.dumps({**spec, "out": tmp}))
+        prog = "import sys, chip_smoke; sys.exit(chip_smoke.dist_rank_main(sys.argv[1:]))"
+        procutil.python_workers([["-c", prog, str(path), str(r)] for r in range(spec["world"])],
+                                DIST_TIMEOUT_S, env=procutil.child_env(2),
+                                cwd=str(REPO))
+        ranks = []
+        for r in range(spec["world"]):
+            with np.load(pathlib.Path(tmp) / f"rank{r}.npz") as z:
+                ranks.append((z["metrics"], {k[2:]: z[k] for k in z.files if k.startswith("v/")},
+                              float(z["seconds"]), float(z["step_ms"])))
+    m0, v0 = ranks[0][:2]
+    for m, v, _, _ in ranks[1:]:
+        if not (np.array_equal(m0, m) and v0.keys() == v.keys()
+                and all(np.array_equal(v0[k], v[k]) for k in v0)):
+            raise AssertionError("dist: the ranks differ")
+    return ranks
+
+
+def check_dp_detections(got: np.ndarray, want: np.ndarray) -> float:
+    """Two [B, 2, top_k, 5] detection tensors of one batch agree at fdt's DP
+    tolerance: per image the same count of face rows, each within
+    DIST_ROW_TOL (match_rows: a near-tied neighbour may swap).  Returns the
+    largest difference."""
+    err = 0.0
+    for i in range(len(want)):
+        n = int((want[i, 1, :, 0] > 0).sum())
+        if int((got[i, 1, :, 0] > 0).sum()) != n:
+            raise AssertionError(f"image {i}: {int((got[i, 1, :, 0] > 0).sum())} rows "
+                                 f"against {n}")
+        if n:
+            err = max(err, match_rows(got[i, 1], want[i, 1], n, DIST_ROW_TOL))
+    return err
+
+
+def phase_dist(device) -> dict:
+    """Data parallelism on the one card (fdt_torch.dist), three legs, each
+    with its [dist] line:
+      (a) the flagship's DP train step at 640², batch 2, float32 "highest",
+          through NCCL at world size 1, against the one-device step (the DP
+          arithmetic: BatchNorm's and the loss's sums, the gradient
+          all-reduce), and each one's ms a step;
+      (b) two gloo ranks on cuda:0 (run_dist_ranks: procutil.python_workers
+          of dist_rank_main) on a global batch of 4: ranks bit-equal after 2
+          steps, and both against the one-rank step on the same 4 rows;
+      (c) DP inference on a 2-slot mesh of cuda:0: the flagship at 640², 9
+          images (the last shard padded), float32 against the unsharded
+          detector (check_dp_detections) and int8 against the unsharded
+          int8 detector on each shard's rows (an activation's int8 scale is
+          its shard's amax), K1, K4 and K5 launches counted.
+    (b)'s ranks start first, on a thread, and (b)'s reference and (c) run
+    while they start up; (a), which is timed, runs after they are done.
+    Returns the launches of (c) and the errors."""
+    from fdt_torch.dist import procutil
+    from fdt_torch.models.loader import load_pyramidbox
+
+    weights = load_pyramidbox(str(WEIGHTS)).state_dict()
+    card = card_line()
+
+    t0 = time.perf_counter()
+    job: dict = {}
+
+    def ranks():
+        try:
+            job["ranks"] = run_dist_ranks({
+                "coordinator": f"127.0.0.1:{procutil.free_port()}", "world": 2, "size": SIZE,
+                "batch": DIST_GLOO_BATCH, "backend": "gloo", "devices": [str(device)] * 2,
+                "timed": False})
+        except BaseException as e:  # noqa: BLE001 — re-raised on the main thread
+            job["error"] = e
+
+    thread = threading.Thread(target=ranks)
+    thread.start()
+    try:
+        want, before = dist_reference(device, weights, DIST_GLOO_BATCH)
+        infer = _dist_infer_2slot(device, weights, card)
+    finally:
+        thread.join()
+    if "error" in job:
+        raise job["error"]
+    gloo = check_dist_step(job["ranks"][0][:2], want, before, "dist gloo 2 ranks")
+    print("[dist] train_gloo_2ranks " + json.dumps({
+        "global_batch": DIST_GLOO_BATCH, "size": SIZE, "steps": DIST_STEPS,
+        "ranks_bit_equal": True, **gloo,
+        "rank_seconds_for_steps": [round(r[2], 3) for r in job["ranks"]], "card": card}),
+        flush=True)
+    _phase("dist_train_gloo_and_infer", t0,
+           loss_rel_err=[f"{e:.3g}" for e in gloo["loss_rel_err"]])
+
+    t0 = time.perf_counter()
+    nccl = _dist_train_nccl1(device, weights, card)
+    _phase("dist_train_nccl", t0, loss_rel_err=[f"{e:.3g}" for e in nccl["loss_rel_err"]])
+    return infer
+
+
+def dist_reference(device, weights, batch: int) -> tuple:
+    """The one-device flagship's DIST_STEPS steps on the DP legs' global
+    batch: ((metrics, variables), the variables before)."""
+    from fdt_torch.models.loader import flat_variables, to_jax_variables
+    one = dist_flagship(device, weights, SIZE)
+    before = flat_variables(to_jax_variables(one.model))
+    return dist_steps(one, train_batch(TRAIN_SEED + 3, batch, SIZE)), before
+
+
+def _dist_train_nccl1(device, weights, card: str) -> dict:
+    """Leg (a) of phase_dist."""
+    from fdt_torch.dist import multihost, procutil
+    from fdt_torch.models.loader import flat_variables, to_jax_variables
+
+    batch = train_batch(TRAIN_SEED + 2, DIST_BATCH, SIZE)
+    one = dist_flagship(device, weights, SIZE)
+    before = flat_variables(to_jax_variables(one.model))
+    want = dist_steps(one, batch)
+    one_ms = _cuda_ms(lambda: one.train_step(*batch, TRAIN_LR), 3)
+    del one
+    multihost.initialize(f"127.0.0.1:{procutil.free_port()}", 1, 0, device=device)
+    try:
+        dp = dist_flagship(device, weights, SIZE)
+        got = dist_steps(dp, batch)
+        dp_ms = _cuda_ms(lambda: dp.train_step(*batch, TRAIN_LR), 3)
+        backend = torch.distributed.get_backend()
+    finally:
+        multihost.shutdown()
+    del dp
+    nccl = check_dist_step(got, want, before, "dist nccl world 1")
+    print("[dist] train_nccl_world1 " + json.dumps({
+        "backend": backend, "batch": DIST_BATCH, "size": SIZE, "steps": DIST_STEPS, **nccl,
+        "dp_step_ms": round(dp_ms, 3), "one_device_step_ms": round(one_ms, 3),
+        "card": card}), flush=True)
+    return nccl
+
+
+def _dist_infer_2slot(device, weights, card: str) -> dict:
+    """Leg (c) of phase_dist: returns the launches and the float32 error."""
+    from fdt_torch.dist import make_mesh
+    from fdt_torch.infer import PyramidBoxDetector
+    from fdt_torch.models import PyramidBox
+
+    def flagship():
+        model = PyramidBox()
+        model.load_state_dict(weights)
+        return model
+
+    mesh = make_mesh(devices=[device] * 2)
+    frames = torch.from_numpy(flagship_batch()).to(device)
+    frames = torch.cat([frames, frames.flip(2)])[:DIST_IMAGES]
+    out, launches = {}, {"k1": 0, "k4_wgmma": 0, "k4_mma_sync": 0, "k5": 0}
+    for name, quant_mode in (("f32", None), ("int8", "int8")):
+        det = PyramidBoxDetector(flagship(), device=device, quant=quant_mode)
+        det_dp = PyramidBoxDetector(flagship(), quant=quant_mode, mesh=mesh)
+        whole = det.detect_tensor(frames, DIST_CONF)
+        torch.cuda.synchronize()
+        _reset_counts()
+        got = det_dp.detect_tensor(frames, DIST_CONF)
+        torch.cuda.synchronize()
+        k4, k5, k1 = _int8_counts()
+        by_variant = _k4_counts()
+        launches["k1"] += k1
+        launches["k4_wgmma"] += by_variant["wgmma"]
+        launches["k4_mma_sync"] += by_variant["mma_sync"]
+        launches["k5"] += k5
+        if got.shape != whole.shape or whole.shape != (DIST_IMAGES, 2, 750, 5):
+            raise AssertionError(f"dist {name}: shapes {got.shape} and {whole.shape}")
+        if name == "f32":
+            out["f32"] = {"max_err": check_dp_detections(got, whole), "k1": k1}
+        else:
+            half = (DIST_IMAGES + 1) // 2
+            padded = torch.cat([frames, frames[-1:]])
+            shards = np.concatenate([det.detect_tensor(padded[:half], DIST_CONF),
+                                     det.detect_tensor(padded[half:], DIST_CONF)])[:DIST_IMAGES]
+            if not np.array_equal(got, shards):
+                raise AssertionError("dist int8: the meshed detector differs from the "
+                                     f"unsharded one on its shards by {np.abs(got - shards).max()}")
+            out["int8"] = {"bit_equal_to_shards": True, "k1": k1, "k4": k4, "k5": k5,
+                           "max_abs_diff_to_whole_batch": float(np.abs(got - whole).max())}
+        del det, det_dp
+    torch.cuda.empty_cache()
+    print("[dist] infer_2slot " + json.dumps({"images": DIST_IMAGES, "size": SIZE,
+                                             "conf": DIST_CONF, **out, **launches,
+                                             "card": card}), flush=True)
+    return {"launches": launches, "f32_err": out["f32"]["max_err"]}
+
+
+@contextlib.contextmanager
+def k1_checked(record: dict):
+    """Every K1 call of the body also run by its plain version on the same
+    device and inputs: record[device] = [calls, largest mask error]."""
+    from fdt_torch.geometry.nms import nms_keep_mask
+    from fdt_torch.ops import nms as nms_op
+
+    kernel = nms_op.nms_keep_tiled
+
+    def checked(boxes, valid, iou_thresh, mode="union", seg_id=None, out_k=None):
+        keep = kernel(boxes, valid, iou_thresh, mode=mode, seg_id=seg_id, out_k=out_k)
+        plain = nms_keep_mask(boxes, valid, iou_thresh, mode=mode, seg_id=seg_id)
+        entry = record.setdefault(str(boxes.device), [0, 0.0])
+        entry[0] += 1
+        entry[1] = max(entry[1], _mask_err(keep, plain, out_k))
+        return keep
+
+    nms_op.nms_keep_tiled = checked
+    try:
+        yield record
+    finally:
+        nms_op.nms_keep_tiled = kernel
+
+
+def _sync_all() -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def _host_ms(fn, iters: int = 5) -> float:
+    """Best of 3 blocks of `iters` calls by the host clock, every card
+    synchronised, after a warm-up of WARMUP_S."""
+    _warm(fn)
+    best = float("inf")
+    for _ in range(3):
+        _sync_all()
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        _sync_all()
+        best = min(best, (time.perf_counter() - t) * 1e3 / iters)
+    return best
+
+
+def phase_dist_cards(cards: int) -> dict:
+    """Data parallelism over `cards` cards of one host (a several-card
+    machine; not part of the one-card main path), each result on its [dist_cards]
+    line beside the cards' names and power limits:
+      * the [device] facts;
+      * DP inference on make_mesh(cards) against the unsharded detector on
+        cuda:0, the flagship at 640², 9 images: float32 (check_dp_detections)
+        and int8 (bit-equal to the unsharded int8 detector on each shard's
+        rows); K1 on every card against its plain version on the path's own
+        boxes (k1_checked), K4 and K5 on every card's int8 convs against
+        theirs (check_int8_model on each replica); the bf16 flagship's
+        images/s at 8 images a card against one card at batch 8 and at the
+        mesh's whole batch (_host_ms);
+      * `cards` NCCL ranks (run_dist_ranks) of the flagship's DP step at
+        640², 2 rows a rank, against the one-card step on the global batch,
+        ranks bit-equal; each rank's ms a step against the one card's at
+        batch 2 and at the global batch;
+      * python -m fdt_torch.cli.train_pyramid --dp_devices `cards` for 3
+        iterations of the flagship at 640², batch 2 a rank, on seeded images
+        of data/mini/gen_anno_file_mini_train.
+    """
+    import tempfile
+
+    from fdt_torch.dist import make_mesh, procutil
+    from fdt_torch.infer import PyramidBoxDetector
+    from fdt_torch.models.loader import flat_variables, load_pyramidbox, to_jax_variables
+    from fdt_torch.ops import nms as nms_op
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()
+    out = {"cards": card, "facts": device_facts()}
+    print("[dist_cards] facts " + json.dumps(out), flush=True)
+    mesh = make_mesh(cards)
+    home = mesh.devices[0]
+
+    t0 = time.perf_counter()
+    frames = torch.from_numpy(flagship_batch())
+    frames = torch.cat([frames, frames.flip(2)])[:DIST_IMAGES].to(home)
+    infer = {}
+    for name, quant_mode in (("f32", None), ("int8", "int8")):
+        det = PyramidBoxDetector(load_pyramidbox(str(WEIGHTS)), device=home, quant=quant_mode)
+        det_dp = PyramidBoxDetector(load_pyramidbox(str(WEIGHTS)), quant=quant_mode, mesh=mesh)
+        whole = det.detect_tensor(frames, DIST_CONF)
+        k1 = {}
+        _sync_all()
+        nms_op.launches.reset()
+        with k1_checked(k1):
+            if quant_mode:
+                checks = {}
+
+                def run_checked(devices):
+                    """One meshed detect, every replica's int8 convs hooked."""
+                    if not devices:
+                        return det_dp.detect_tensor(frames, DIST_CONF)
+                    res = {}
+                    checks[str(devices[0])] = check_int8_model(
+                        det_dp._models[devices[0]],
+                        lambda: res.setdefault("got", run_checked(devices[1:])))
+                    return res["got"]
+
+                got = run_checked(list(mesh.distinct))
+            else:
+                got = det_dp.detect_tensor(frames, DIST_CONF)
+        _sync_all()
+        entry = {"k1": k1, "k1_launches": nms_op.launches.count}
+        if quant_mode:
+            per = -(-DIST_IMAGES // cards)
+            padded = torch.cat([frames, frames[-1:].expand(per * cards - DIST_IMAGES, -1, -1, -1)])
+            shards = np.concatenate([det.detect_tensor(padded[i * per:(i + 1) * per], DIST_CONF)
+                                     for i in range(cards)])[:DIST_IMAGES]
+            entry.update(bit_equal_to_shards=bool(np.array_equal(got, shards)),
+                         max_abs_diff_to_shards=float(np.abs(got - shards).max()),
+                         int8_checks=checks)
+        else:
+            entry["max_err"] = check_dp_detections(got, whole)
+        for dev, (calls, err) in k1.items():
+            if err:
+                raise AssertionError(f"dist_cards: K1 on {dev} differs from its plain version")
+        bad = {d: c for d, c in entry.get("int8_checks", {}).items()
+               if c["k5_err"] or c["k4_err"] or not c["convs"]}
+        if bad or len(k1) != len(mesh.distinct):
+            raise AssertionError(f"dist_cards: K4/K5 off their plain versions on {bad}, or K1 "
+                                 f"ran on {sorted(k1)} only")
+        infer[name] = entry
+        del det, det_dp
+    print("[dist_cards] infer " + json.dumps({"images": DIST_IMAGES, "size": SIZE, **infer,
+                                              "card": card}), flush=True)
+    if not infer["int8"]["bit_equal_to_shards"]:
+        raise AssertionError("dist_cards: the int8 mesh differs from its shards' unsharded rows")
+
+    det16 = PyramidBoxDetector(load_pyramidbox(str(WEIGHTS)), dtype=torch.bfloat16, device=home)
+    det16_dp = PyramidBoxDetector(load_pyramidbox(str(WEIGHTS)), dtype=torch.bfloat16, mesh=mesh)
+    big = torch.from_numpy(np.concatenate([flagship_batch()] * cards)).to(home)
+    rates = {"mesh_batch": len(big),
+             "mesh_ms": _host_ms(lambda: det16_dp.detect_device(big, 0.35, 0.35)),
+             "one_card_batch8_ms": _host_ms(lambda: det16.detect_device(big[:BATCH], 0.35, 0.35)),
+             "one_card_whole_batch_ms": _host_ms(lambda: det16.detect_device(big, 0.35, 0.35))}
+    rates.update(mesh_images_per_s=len(big) * 1e3 / rates["mesh_ms"],
+                 one_card_images_per_s=BATCH * 1e3 / rates["one_card_batch8_ms"])
+    print("[dist_cards] infer_rate " + json.dumps({**{k: round(v, 3) for k, v in rates.items()},
+                                                   "dtype": "bf16", "card": card}), flush=True)
+    del det16, det16_dp, big
+    torch.cuda.empty_cache()
+    _phase("dist_cards_infer", t0)
+
+    t0 = time.perf_counter()
+    weights = load_pyramidbox(str(WEIGHTS)).state_dict()
+    batch = train_batch(TRAIN_SEED + 3, 2 * cards, SIZE)
+    one = dist_flagship(home, weights, SIZE)
+    before = flat_variables(to_jax_variables(one.model))
+    want = dist_steps(one, batch)
+    one_ms = {"global_batch": _cuda_ms(lambda: one.train_step(*batch, TRAIN_LR), 3)}
+    batch2 = tuple(x[:2] for x in batch)
+    one.train_step(*batch2, TRAIN_LR)  # the first call at a shape plans cuDNN's convolutions
+    one_ms["batch2"] = _cuda_ms(lambda: one.train_step(*batch2, TRAIN_LR), 3)
+    del one
+    torch.cuda.empty_cache()
+    ranks = run_dist_ranks({"coordinator": f"127.0.0.1:{procutil.free_port()}", "world": cards,
+                            "size": SIZE, "batch": 2 * cards, "backend": "nccl",
+                            "devices": [f"cuda:{i}" for i in range(cards)]})
+    nccl = check_dist_step(ranks[0][:2], want, before, f"dist_cards nccl {cards} ranks")
+    print("[dist_cards] train_nccl " + json.dumps({
+        "ranks": cards, "global_batch": 2 * cards, "size": SIZE, "ranks_bit_equal": True, **nccl,
+        "rank_step_ms": [round(r[3], 3) for r in ranks],
+        "one_card_step_ms": {k: round(v, 3) for k, v in one_ms.items()}, "card": card}),
+        flush=True)
+    _phase("dist_cards_train", t0)
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        anno = write_mini_train(pathlib.Path(tmp))
+        argv = ["--net", "repo", "--batch_size", str(2 * cards), "--iter", "3",
+                "--save_point", "3", "--dp_devices", str(cards), "--annoPath", str(anno),
+                "--save_folder", tmp + "/", *(["--device", "cpu"] if home.type == "cpu" else [])]
+        r = subprocess.run([sys.executable, "-m", "fdt_torch.cli.train_pyramid", *argv],
+                           capture_output=True, text=True, timeout=DIST_TIMEOUT_S, cwd=REPO)
+        if r.returncode:
+            raise AssertionError(f"dist_cards: train_pyramid --dp_devices {cards} exited "
+                                 f"{r.returncode}:\n{r.stderr[-3000:]}")
+        line = [ln for ln in r.stdout.splitlines() if ln.startswith("[train] ")][-1]
+        saved = sorted(p.name for p in pathlib.Path(tmp).iterdir() if p.name.startswith("repo_"))
+    print("[dist_cards] train_cli " + json.dumps({
+        "train": json.loads(line[len("[train] "):]), "saved": saved,
+        "wall_s": round(time.perf_counter() - t0, 3), "card": card}), flush=True)
+    _phase("dist_cards_cli", t0)
+    return out
+
+
+def write_mini_train(directory: pathlib.Path) -> pathlib.Path:
+    """data/mini/gen_anno_file_mini_train with each image a seeded
+    photo-like PNG large enough for its boxes (the images are not in the
+    repo); returns the new anno file."""
+    from PIL import Image
+    lines = []
+    src = REPO / "data" / "mini" / "gen_anno_file_mini_train"
+    for k, line in enumerate(src.read_text().splitlines()):
+        cells = line.split()
+        n = int(cells[1])
+        b = np.array(cells[2:2 + 4 * n], float).reshape(n, 4)
+        h, w = int((b[:, 1] + b[:, 3]).max()) + 8, int((b[:, 0] + b[:, 2]).max()) + 8
+        path = directory / (pathlib.Path(cells[0]).stem + ".png")
+        Image.fromarray(photo_like(h, w, k)[:, :, ::-1]).save(path)
+        lines.append(" ".join([str(path)] + cells[1:]))
+    anno = directory / src.name
+    anno.write_text("\n".join(lines) + "\n")
+    return anno
+
+
 def device_facts() -> dict:
     """What the distribution slice needs to know of this machine: torch's
     and nvidia-smi's card counts, NCCL's presence and version."""
@@ -5069,6 +5567,7 @@ def main() -> int:
     interop_launches = phase_interop(device)
     tooling_launches = phase_tooling(device)
     phase_inception(device)
+    dist = phase_dist(device)
     print("[device] " + json.dumps(device_facts()), flush=True)
 
     # PyTorch has no NMS call (and torchvision is not installed) and no
@@ -5084,7 +5583,8 @@ def main() -> int:
         k4_rows.append({
             "name": row_name, "route": "cuda", "source": "fdt_torch/csrc/conv_int8.cu",
             "replaces": "fdt/ops/quant.py:123",
-            "launches": int8_launches[f"k4_{variant}"], "max_abs_err": int8_err["k4"],
+            "launches": int8_launches[f"k4_{variant}"] + dist["launches"][f"k4_{variant}"],
+            "max_abs_err": int8_err["k4"],
             "ms": t["k4_ms"], "plain_ms": t["k4_plain_ms"], "bound_ms": t["k4_bound_ms"],
             "bound_by": t["k4_bound_by"], "shape": t["shape"], "mnk": t["mnk"],
             "batch_bound_ms": int8_sums["k4_bound_ms"].get(variant, 0.0),
@@ -5101,7 +5601,7 @@ def main() -> int:
         "launches": (launches + int8_launches["k1"] + mtcnn_launches + track_k1_launches
                      + http_launches + eval_launches + host_launches + video_k1
                      + demo_launches + train_launches + families_launches
-                     + interop_launches + tooling_launches),
+                     + interop_launches + tooling_launches + dist["launches"]["k1"]),
         "max_abs_err": max(k1["max_abs_err"], boxes_err, mtcnn_err, track_k1_err,
                            video_k1_err),
         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
@@ -5133,7 +5633,8 @@ def main() -> int:
         **k4_rows[0]}, {**k4_rows[1]}, {
         "name": "quantize_int8 (K5)", "route": "cuda", "source": "fdt_torch/csrc/quantize_int8.cu",
         "replaces": "fdt/ops/quant.py:69",
-        "launches": int8_launches["k5"], "max_abs_err": int8_err["k5"],
+        "launches": int8_launches["k5"] + dist["launches"]["k5"],
+        "max_abs_err": int8_err["k5"],
         "ms": k5["k5_ms"], "plain_ms": k5["k5_plain_ms"], "bound_ms": k5["k5_bound_ms"],
         "bound_by": k5["k5_bound_by"], "shape": k5["shape"],
         "batch_bound_ms": int8_sums["k5_bound_ms"],

@@ -9,8 +9,9 @@ card (counterpart of scripts/serve.py, with the same flags).
 Weights are variables npz files in fdt's format or reference .pth/.pt
 state dicts.  `--quant int8` serves the pyramid or FaceBoxes family with int8
 convolutions (kernels K5 and K4 on the card) and is refused for the mtcnn
-cascade, as in fdt.  --dp_devices is
-accepted and refused: data-parallel serving is not ported yet.
+cascade, as in fdt.  `--dp_devices n` shards each micro-batch over n
+devices (the pyramid and FaceBoxes families, as in fdt): the first n cards,
+or n slots on the CPU with --device cpu (fdt_torch.dist.make_mesh).
 """
 from __future__ import annotations
 
@@ -21,23 +22,32 @@ from fdt_torch.cli._common import add_device_flag
 
 def build_service(args):
     from fdt_torch.apps.serving import DetectionService
-    if args.dp_devices:
-        raise SystemExit("--dp_devices is not ported to fdt_torch yet "
-                         "(data-parallel serving)")
     kw = dict(threshold=args.threshold, max_batch=args.max_batch,
               max_wait_ms=args.max_wait_ms,
               frame_size=(args.frame_w, args.frame_h))
+    mesh = None
+    if args.dp_devices:  # shard each coalesced batch over the mesh
+        if args.detector == "mtcnn":
+            raise SystemExit("--dp_devices is not wired for the mtcnn cascade")
+        from fdt_torch.dist import make_mesh
+        try:
+            mesh = (make_mesh(devices=["cpu"] * args.dp_devices) if args.device == "cpu"
+                    else make_mesh(args.dp_devices))
+        except ValueError as e:
+            raise SystemExit(f"--dp_devices {args.dp_devices}: {e}") from None
     if args.detector == "pyramid":
         from fdt_torch.models.loader import load_pyramidbox_detector
         det = load_pyramidbox_detector(args.net, args.weights, budget=5000,
-                                       device=args.device, quant=args.quant)
+                                       device=None if mesh else args.device,
+                                       quant=args.quant, mesh=mesh)
         return DetectionService("pyramidbox", det, **kw)
     if not args.weights:
         raise SystemExit(f"--weights is required for --detector {args.detector}")
     if args.detector == "facebox":
         from fdt_torch.models.loader import load_facebox_detector
         return DetectionService("facebox", load_facebox_detector(
-            args.weights, device=args.device, quant=args.quant), **kw)
+            args.weights, device=None if mesh else args.device, quant=args.quant,
+            mesh=mesh), **kw)
     if args.quant:
         raise SystemExit("--quant is not supported for the mtcnn cascade")
     paths = args.weights.split(",")  # pnet,rnet,onet: npz or .pt files
@@ -53,7 +63,7 @@ def build_service(args):
     return DetectionService("mtcnn", det, **kw)
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--detector", default="pyramid",
                     choices=["pyramid", "facebox", "mtcnn"])
@@ -71,11 +81,16 @@ def main(argv=None):
     ap.add_argument("--quant", default=None, choices=[None, "int8"],
                     help="int8 inference (pyramid and facebox)")
     ap.add_argument("--dp_devices", default=0, type=int,
-                    help="data-parallel serving (not ported yet: refused)")
+                    help="data-parallel serving (pyramid/facebox): shard each "
+                         "micro-batch over an n-device mesh")
     ap.add_argument("--no_warmup", action="store_true",
                     help="skip building the kernels and the warm-up batches")
     add_device_flag(ap)
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
 
     from fdt_torch.apps.serving import serve_http
     service = build_service(args)

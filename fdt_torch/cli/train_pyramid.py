@@ -13,21 +13,32 @@ prefetch queue and the host's augmentation rate.
 through fdt_torch.cli.train_chained (each phase's lr / momentum / batch_size
 as chained processes), passing on the flags fdt's script passes
 (scripts/train_pyramid.py:98-121), --device in place of --platform.
+
+Data parallelism, one rank a device (fdt_torch.dist), with fdt's batches:
+  --dp_devices n     fdt's one-process mesh: this process starts n local
+                     ranks (cuda:0..n-1, or n CPU ranks with --device cpu,
+                     over gloo) that run the same seeded pipeline; rank r
+                     keeps rows [r·B/n, (r+1)·B/n) of each batch of
+                     B = --batch_size rows (so B % n must be 0);
+  --num_processes N  N processes the user starts, each with its
+                     --process_id and the same --coordinator host:port; each
+                     takes its record shard and --batch_size rows a step
+                     (global batch N × batch_size) on --device, or else on
+                     cuda:<process_id mod cards>; --max_gt is required.
+                     --dp_devices is then 0 or N.
+--sp_devices above 1 (the data x space mesh) is the next slice.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import sys
 
 from fdt_torch.cli._common import add_device_flag
 
-# flags fdt's CLI has that this one refuses, and the slice that brings them
-_REFUSED = {
-    "dp_devices": "data parallelism is ROADMAP Queue 1 item 5 (distribution)",
-    "sp_devices": "spatial partitioning is ROADMAP Queue 1 item 5 (distribution)",
-    "num_processes": "multi-process training is ROADMAP Queue 1 item 5 (distribution)",
-}
+_SP_REFUSED = ("--sp_devices: the data x space mesh (image height sharded, convolution "
+               "halos exchanged) is the next slice of the port, ROADMAP Queue 1 item 5")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -61,12 +72,20 @@ def build_parser() -> argparse.ArgumentParser:
                     help="recompute activations in the backward pass: every Bottleneck "
                          "and extra layer on the flagship, the whole forward on the "
                          "mobile variants; same gradients, less activation memory")
-    ap.add_argument("--dp_devices", default=0, type=int, help="refused (not ported)")
-    ap.add_argument("--sp_devices", default=1, type=int, help="refused (not ported)")
-    ap.add_argument("--num_processes", default=1, type=int, help="refused above 1")
+    ap.add_argument("--dp_devices", default=0, type=int,
+                    help="data-parallel ranks started here, one a device (0 = one "
+                         "device); each batch's rows split over them")
+    ap.add_argument("--sp_devices", default=1, type=int,
+                    help="spatial partitioning: refused above 1 (the next slice)")
+    ap.add_argument("--num_processes", default=1, type=int,
+                    help="multi-process data parallelism: start this CLI once a process "
+                         "with its --process_id; global batch num_processes x batch_size")
     ap.add_argument("--process_id", default=0, type=int)
-    ap.add_argument("--coordinator", default="127.0.0.1:12360")
-    ap.add_argument("--max_gt", default=None, type=int, help="GT pad bucket")
+    ap.add_argument("--coordinator", default="127.0.0.1:12360",
+                    help="host:port of process 0's rendezvous")
+    ap.add_argument("--max_gt", default=None, type=int,
+                    help="GT pad bucket (required for --num_processes > 1: the "
+                         "processes' pads must agree)")
     ap.add_argument("--journal", default=None,
                     help="replay a journal schedule from draw_curve/log (repo | try3 | "
                          "try1) through fdt_torch.cli.train_chained")
@@ -78,11 +97,24 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse(args) -> None:
-    given = {"dp_devices": args.dp_devices != 0, "sp_devices": args.sp_devices > 1,
-             "num_processes": args.num_processes > 1}
-    for flag, on in given.items():
-        if on:
-            raise SystemExit(f"--{flag}: {_REFUSED[flag]}")
+    """fdt's rules for the distribution flags, and the port's one-rank-a-device
+    layout."""
+    if args.sp_devices > 1:
+        raise SystemExit(_SP_REFUSED)
+    if args.num_processes > 1:
+        if args.dp_devices not in (0, args.num_processes):
+            raise SystemExit(f"--dp_devices {args.dp_devices} with --num_processes "
+                             f"{args.num_processes}: the port runs one rank a device, so "
+                             "--dp_devices is 0 or --num_processes")
+        if args.max_gt is None:
+            raise SystemExit("--num_processes > 1 requires --max_gt: the processes' GT "
+                             "pads must agree")
+        if not 0 <= args.process_id < args.num_processes:
+            raise SystemExit(f"--process_id {args.process_id} is not in "
+                             f"[0, {args.num_processes})")
+    elif args.dp_devices > 1 and args.batch_size % args.dp_devices:
+        raise SystemExit(f"--batch_size {args.batch_size} does not divide over "
+                         f"--dp_devices {args.dp_devices}")
 
 
 def journal_argv(args) -> list[str]:
@@ -109,9 +141,79 @@ def main(argv=None) -> int:
     if args.journal:
         from fdt_torch.cli import train_chained
         return train_chained.main(journal_argv(args))
+    if args.num_processes > 1:
+        device = _process_device(args.device, args.process_id)
+        return _rank(args, args.coordinator, args.num_processes, args.process_id, device,
+                     "records")
+    if args.dp_devices > 1:
+        return _start_local_ranks(args, argv)
+    return _train(args, args.device)
 
+
+def _process_device(device, index: int):
+    """--device, or the card index mod the card count."""
+    import torch
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise SystemExit("CUDA is not available; pass --device cpu to train on the CPU")
+    return torch.device("cuda", index % torch.cuda.device_count())
+
+
+def _start_local_ranks(args, argv) -> int:
+    """--dp_devices n: n ranks of this CLI (dp_rank_main), each on its
+    device, over a fresh local port; their output is this process's.
+    Returns when all have finished; a failure ends them all."""
     import torch
 
+    from fdt_torch.dist import make_mesh, procutil
+    n = args.dp_devices
+    if args.device not in (None, "cpu", "cuda"):
+        raise SystemExit(f"--dp_devices {n} takes cards cuda:0..{n - 1} or, with "
+                         f"--device cpu, the CPU; not --device {args.device}")
+    if args.device != "cpu":
+        try:
+            make_mesh(n)
+        except ValueError as e:
+            raise SystemExit(f"--dp_devices {n}: {e}") from None
+    argv = sys.argv[1:] if argv is None else list(argv)
+    coordinator = f"127.0.0.1:{procutil.free_port()}"
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env = procutil.child_env(max(1, torch.get_num_threads() // n))
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, [root, env.get("PYTHONPATH")]))
+    prog = ("import sys; from fdt_torch.cli.train_pyramid import dp_rank_main; "
+            "sys.exit(dp_rank_main(sys.argv[1:]))")
+    try:
+        procutil.python_workers([["-c", prog, str(r), coordinator, *argv] for r in range(n)],
+                                None, env=env, capture=False)
+    except procutil.WorkerFailure as e:
+        raise SystemExit(f"--dp_devices {n}: rank {e.index} exited with code "
+                         f"{e.returncode}; the others were stopped") from None
+    return 0
+
+
+def dp_rank_main(argv) -> int:
+    """One rank of --dp_devices n: `rank coordinator *cli_args`."""
+    rank, coordinator, *rest = argv
+    args = build_parser().parse_args(rest)
+    device = "cpu" if args.device == "cpu" else f"cuda:{rank}"
+    return _rank(args, coordinator, args.dp_devices, int(rank), device, "rows")
+
+
+def _rank(args, coordinator: str, world: int, rank: int, device, shard: str) -> int:
+    """Join the process group as `rank` of `world`, train, leave."""
+    from fdt_torch.dist import make_mesh, multihost
+    multihost.initialize(coordinator, world, rank, device=device)
+    try:
+        return _train(args, device, make_mesh(devices=[device]), shard)
+    finally:
+        multihost.shutdown()
+
+
+def _train(args, device, mesh=None, shard: str = "records") -> int:
+    import torch
+
+    from fdt_torch.dist import multihost
     from fdt_torch.models import build_pyramidbox
     from fdt_torch.train.checkpoint import load_weights
     from fdt_torch.train.driver import TrainConfig, run_pyramid_training
@@ -123,7 +225,7 @@ def main(argv=None) -> int:
                              input_size=args.input_size, freeze_predicate=freeze,
                              remat=args.remat and args.net != "repo",
                              dtype=torch.bfloat16 if args.bf16 else torch.float32,
-                             device=args.device)
+                             device=device)
     if args.resume:
         load_weights(args.resume, trainer, strict=False)
     os.makedirs(args.save_folder, exist_ok=True)
@@ -135,10 +237,16 @@ def main(argv=None) -> int:
                       startup_timeout=args.startup_timeout)
     stats: dict = {}
     run_pyramid_training(trainer, args.annoPath, cfg,
-                         val_anno=args.evalAnnoPath if args.eval_freq else None, stats=stats)
-    images = stats["iterations"] * args.batch_size
+                         val_anno=args.evalAnnoPath if args.eval_freq else None, mesh=mesh,
+                         stats=stats, shard=shard)
+    if not multihost.is_main():
+        return 0
+    ranks = 1 if mesh is None else mesh.world_size
+    global_batch = args.batch_size * (ranks if shard == "records" else 1)
+    images = stats["iterations"] * global_batch
     print("[train] " + json.dumps({
         "net": args.net, "iterations": stats["iterations"], "step": trainer.step,
+        "ranks": ranks, "global_batch": global_batch,
         "wall_s": round(stats["wall_s"], 3), "wait_s": round(stats["wait_s"], 3),
         "wait_share": round(stats["wait_s"] / stats["wall_s"], 4) if stats["wall_s"] else None,
         "augment_images_per_s": (round(stats["augmented"] / stats["augment_s"], 2)

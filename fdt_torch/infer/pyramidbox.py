@@ -15,6 +15,13 @@ first forward at that size (exact for try4/try5 too, whose maps break the
 ceil-halving rule; fdt takes them from an abstract trace), in an LRU of 64
 sizes as fdt bounds its per-shape executables: native-resolution eval sees
 hundreds of sizes.
+
+`mesh=` (fdt_torch.dist.Mesh) is fdt's data-parallel inference: the model is
+replicated to each device of the mesh once, and each batch is padded by
+repeating its last row to a mesh multiple, split, run shard by shard without
+waiting for a card, gathered on the mesh's first device and cut back.
+Images are independent, so the answers are the unsharded detector's, up to
+the convolution algorithms a card picks for another batch size.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ import torch.nn.functional as F
 
 from fdt_torch.anchors import pyramid_face_priors
 from fdt_torch.config import DetectConfig, PIXEL_MEAN_BGR, PYRAMID_CONFIGS, PyramidConfig
+from fdt_torch.dist.mesh import replicated, run_sharded
 from fdt_torch.infer.detect import ssd_detect
 from fdt_torch.ops.quant import check_mode, int8_convs
 
@@ -99,8 +107,14 @@ def place_model(model, device: torch.device, dtype: torch.dtype, memory_format,
     return qmodel.to(device, dtype=dtype, memory_format=memory_format)
 
 
-def _resolve_device(device) -> torch.device:
-    """`None` means the CUDA card; raise if there is none."""
+def _resolve_device(device, mesh=None) -> torch.device:
+    """`None` means the CUDA card, or the first device of `mesh`; raise if
+    there is no card, or if `device` is not the mesh's first."""
+    if mesh is not None:
+        if device is not None and torch.device(device) != mesh.devices[0]:
+            raise ValueError(f"device {device} is not the mesh's first device "
+                             f"{mesh.devices[0]}")
+        device = mesh.devices[0]
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' to run "
@@ -125,6 +139,8 @@ class PyramidBoxDetector:
         allowed), as fdt's detector.
       quant: None, or "int8" for fdt's post-training int8 inference
         (place_model; the model passed in is not changed).
+      mesh: an fdt_torch.dist.Mesh for data-parallel batches (the module's
+        docstring); `device` is then its first device.
 
     `source_shapes[(width, height)]` holds the (f_width, f_height) of every
     source map, recorded at the first forward at that size, for the sizes the
@@ -134,7 +150,7 @@ class PyramidBoxDetector:
     def __init__(self, model, cfg: PyramidConfig | str = "repo",
                  detect_cfg: DetectConfig | None = None, budget: int = 5000,
                  dtype: torch.dtype = torch.float32, device=None,
-                 precision: str = "highest", quant: str | None = None):
+                 precision: str = "highest", quant: str | None = None, mesh=None):
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
         self.precision = _check_precision(precision)
@@ -143,13 +159,16 @@ class PyramidBoxDetector:
         self.detect_cfg = detect_cfg or self.cfg.detect
         self.budget = budget
         self.dtype = dtype
-        self.device = _resolve_device(device)
+        self.mesh = mesh
+        self.device = _resolve_device(device, mesh)
         self.memory_format = (torch.channels_last if dtype == torch.bfloat16
                               else torch.contiguous_format)
         self.model = place_model(model, self.device, dtype, self.memory_format, quant)
-        self._mean = torch.tensor(PIXEL_MEAN_BGR, dtype=torch.float32,
-                                  device=self.device)
-        # (width, height) → (source shapes, priors on the device), least
+        # the model on each device that runs a shard (only self.model without a mesh)
+        self._models = replicated(mesh, self.model) if mesh else {self.device: self.model}
+        self._means = {d: torch.tensor(PIXEL_MEAN_BGR, dtype=torch.float32, device=d)
+                       for d in self._models}
+        # (width, height) → (source shapes, {device: priors}), least
         # recently used first
         self._priors: OrderedDict = OrderedDict()
         self._priors_max = 64
@@ -158,7 +177,7 @@ class PyramidBoxDetector:
     def source_shapes(self) -> dict[tuple[int, int], tuple]:
         return {size: shapes for size, (shapes, _) in self._priors.items()}
 
-    def _priors_for(self, width: int, height: int, source_shapes) -> torch.Tensor:
+    def _priors_for(self, width: int, height: int, source_shapes, device) -> torch.Tensor:
         key = (width, height)
         entry = self._priors.get(key)
         if entry is None:
@@ -166,33 +185,43 @@ class PyramidBoxDetector:
                 raise ValueError(f"the model has {len(source_shapes)} source maps; "
                                  f"config {self.cfg.name!r} has priors for "
                                  f"{len(self.cfg.face_priors.strides)}")
-            entry = self._priors[key] = (tuple(source_shapes), torch.from_numpy(
-                pyramid_face_priors(self.cfg, source_shapes, width, height)).to(self.device))
+            entry = self._priors[key] = (tuple(source_shapes), {})
         else:
             self._priors.move_to_end(key)
         while len(self._priors) > self._priors_max:  # also after the bound is lowered
             self._priors.popitem(last=False)
-        return entry[1]
+        on = entry[1]
+        if device not in on:
+            on[device] = torch.from_numpy(
+                pyramid_face_priors(self.cfg, entry[0], width, height)).to(device)
+        return on[device]
 
     @torch.inference_mode()
     def detect_device(self, images_u8: torch.Tensor, conf_thresh: float | None = None,
                       nms_thresh: float | None = None) -> torch.Tensor:
         """[B,H,W,3] uint8 BGR tensor → [B, 2, top_k, 5] float32 tensor on
-        the detector's device (no host synchronisation)."""
+        the detector's device (no host synchronisation; with a mesh, shard
+        by shard, gathered there)."""
         if images_u8.dim() != 4 or images_u8.shape[-1] != 3 or images_u8.dtype != torch.uint8:
             raise ValueError(f"expected [B,H,W,3] uint8, got {images_u8.dtype} "
                              f"{tuple(images_u8.shape)}")
-        b, h, w, _ = images_u8.shape
         dcfg = dataclasses.replace(
             self.detect_cfg,
             conf_thresh=self.detect_cfg.conf_thresh if conf_thresh is None else conf_thresh,
             nms_thresh=self.detect_cfg.nms_thresh if nms_thresh is None else nms_thresh)
-        x = images_u8.to(self.device, non_blocking=True).float() - self._mean
+        if self.mesh is None:
+            return self._detect_on(self.device, images_u8, dcfg)
+        return run_sharded(self.mesh, lambda d, x: self._detect_on(d, x, dcfg), images_u8,
+                           self.device)
+
+    def _detect_on(self, device, images_u8: torch.Tensor, dcfg) -> torch.Tensor:
+        _, h, w, _ = images_u8.shape
+        x = images_u8.to(device, non_blocking=True).float() - self._means[device]
         x = x.permute(0, 3, 1, 2).to(self.dtype).contiguous(
             memory_format=self.memory_format)
         with tf32_for(self.precision):
-            out = self.model(x)
-        priors = self._priors_for(w, h, out["source_shapes"])
+            out = self._models[device](x)
+        priors = self._priors_for(w, h, out["source_shapes"], device)
         conf = F.softmax(out["face_conf"], dim=-1)
         return ssd_detect(out["face_loc"], conf, priors, dcfg, budget=self.budget)
 

@@ -11,6 +11,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fdt_torch.dist import multihost
+
 
 def conv(cin: int, cout: int, kernel: int, stride: int = 1, padding: int = 0,
          *, bias: bool = True, dilation: int = 1, groups: int = 1) -> nn.Conv2d:
@@ -47,11 +49,19 @@ class BatchNorm2d(nn.BatchNorm2d):
     flax's nn.BatchNorm(momentum=0.9) does: with the BIASED batch variance
     (torch stores the unbiased one, ×n/(n−1)), and not at all inside
     `running_stats_frozen()`.  Eval mode and the state dict are
-    nn.BatchNorm2d's."""
+    nn.BatchNorm2d's.
+
+    While a torch.distributed process group exists, train mode normalises
+    with the statistics of the GLOBAL batch, as fdt's SPMD step does:
+    [Σx, Σx², count] summed over the ranks by a differentiable all-reduce,
+    mean = Σx/n and var = max(Σx²/n − mean², 0) in float32 (flax's
+    formula), so every rank updates the same running statistics."""
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if multihost.group() is not None:
+            return self._forward_global(x)
         # one fused pass: torch writes the batch mean and the unbiased
         # variance into fresh buffers (momentum 1), the biased one is
         # recovered from it.  A checkpoint's recompute takes the same call,
@@ -66,6 +76,23 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_mean.mul_(0.9).add_(mean, alpha=1 - 0.9)
             self.running_var.mul_(0.9).add_(var * ((n - 1) / n), alpha=1 - 0.9)
         return y
+
+    def _forward_global(self, x):
+        c = x.shape[1]
+        xf = x.float()
+        local = torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)),
+                           xf.new_full((1,), x.numel() // c)])
+        total = multihost.all_reduce_sum(local)
+        n = total[2 * c]
+        mean = total[:c] / n
+        var = torch.clamp(total[c:2 * c] / n - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        if not _STATS_FROZEN:
+            with torch.no_grad():
+                self.running_mean.mul_(0.9).add_(mean, alpha=1 - 0.9)
+                self.running_var.mul_(0.9).add_(var, alpha=1 - 0.9)
+        return y.to(x.dtype)
 
 
 def checkpoint(fn, *args):

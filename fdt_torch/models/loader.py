@@ -250,8 +250,9 @@ def load_pyramidbox_detector(variant: str, weights: str | None, **kw):
     """A PyramidBoxDetector for any variant with the weights of `weights`
     (load_pyramidbox); torch's default initialisation when it is None
     (fdt's is flax's).  **kw go to the detector (detect_cfg=, budget=,
-    dtype=, device=, precision=, quant=); with quant="int8" the convs are
-    quantized from the loaded float32 weights."""
+    dtype=, device=, precision=, quant=, mesh=); with quant="int8" the convs
+    are quantized from the loaded float32 weights; mesh= is fdt's
+    data-parallel inference over an fdt_torch.dist.Mesh."""
     from fdt_torch.infer.pyramidbox import PyramidBoxDetector
     model = (load_pyramidbox(weights, variant) if weights
              else build_pyramidbox(variant).eval())
@@ -261,8 +262,9 @@ def load_pyramidbox_detector(variant: str, weights: str | None, **kw):
 def load_facebox_detector(weights: str, **kw):
     """A FaceBoxDetector with the weights of a variables npz or a reference
     `.pth`/`.pt`, loaded strict.  **kw go to the detector (budget=, out_k=,
-    dtype=, device=, precision=, quant=); with quant="int8" the convs are
-    quantized from the loaded float32 weights."""
+    dtype=, device=, precision=, quant=, mesh=); with quant="int8" the convs
+    are quantized from the loaded float32 weights; mesh= is fdt's
+    data-parallel inference over an fdt_torch.dist.Mesh."""
     from fdt_torch.infer.facebox import FaceBoxDetector
     return FaceBoxDetector(load_weights_file(FaceBox(), weights).eval(), **kw)
 

@@ -3,8 +3,10 @@
 Epoch-shuffled augmented batches built on a worker thread, step-decayed SGD,
 loss-history dumps in the reference's 5-row layout, eval over validation
 batches, step-suffixed checkpoints (fdt_torch.train.checkpoint) and the
-backbone-freeze window.  One device; data parallelism (fdt's `mesh=`) is
-ROADMAP Queue 1 item 5.
+backbone-freeze window.  On one device, or data-parallel (fdt's `mesh=`):
+one rank a device in a torch.distributed process group, each rank's mesh
+holding its one device (fdt_torch.dist; started by
+`python -m fdt_torch.cli.train_pyramid --dp_devices n | --num_processes n`).
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ import numpy as np
 import torch
 
 from fdt_torch.data.widerface import WiderFaceDataset
+from fdt_torch.dist import multihost
+from fdt_torch.dist.mesh import canonical_device
 from fdt_torch.train.checkpoint import save_checkpoint
 from fdt_torch.train.loops import LossHistory, PyramidTrainer, pad_targets
 
@@ -113,39 +117,87 @@ def prefetch_batches(dataset, batch_size: int, depth: int = 3, pin: bool = False
         thread.join(timeout=JOIN_TIMEOUT_S)
 
 
+def check_training_mesh(mesh, trainer) -> None:
+    """A training mesh holds the one device its rank drives, the trainer's.
+    fdt's single-process mesh over several devices has no counterpart: the
+    port trains one process a device."""
+    if mesh.size != 1:
+        raise ValueError(
+            f"a training mesh holds its rank's one device, not {mesh.size}: the port "
+            "trains data-parallel with one process a device; start them with "
+            "python -m fdt_torch.cli.train_pyramid --dp_devices n (n local ranks) or "
+            "--num_processes n (a process each)")
+    if mesh.devices[0] != canonical_device(trainer.device):
+        raise ValueError(f"the mesh's device {mesh.devices[0]} is not the trainer's "
+                         f"{trainer.device}")
+
+
 def run_pyramid_training(trainer: PyramidTrainer, train_anno: str, cfg: TrainConfig,
                          val_anno: str | None = None,
                          log: Callable[[str], None] = print, mesh=None,
-                         stats: dict | None = None) -> PyramidTrainer:
+                         stats: dict | None = None, shard: str = "records") -> PyramidTrainer:
     """Train from cfg.start_iter + 1 to cfg.total_iters; checkpoints and loss
     .npy files at the save points and a final checkpoint.  Returns the
     trainer.  `stats`, if given, gets the loop's wall seconds ("wall_s"), the
     seconds it waited on the prefetch queue ("wait_s"), the iterations run
-    and the worker's augmentation figures (prefetch_batches)."""
+    and the worker's augmentation figures (prefetch_batches).
+
+    mesh: this rank's fdt_torch.dist.Mesh (check_training_mesh) for
+    data-parallel training under a process group of more than one rank;
+    `shard` says how the ranks split the data:
+      "records" — fdt's multi-process contract: rank i takes the record
+        shard records[i::n] with RandomState(1 + i) and cfg.batch_size rows
+        a step, so the global batch is n × batch_size; cfg.max_gt is
+        required (the ranks' GT pads must agree);
+      "rows" — fdt's one-process mesh, replayed by n ranks: every rank runs
+        the same seeded pipeline and keeps its rows [r·B/n, (r+1)·B/n) of
+        each batch of B = cfg.batch_size rows, so the batches are fdt's.
+    The validation batches are not sharded by records (every rank walks the
+    same ones; "rows" keeps a rank's rows).  Rank 0 writes the checkpoints
+    and the loss files; the others reset their history and wait for it."""
+    rows = None
     if mesh is not None:
-        raise NotImplementedError("data-parallel training (mesh=) is not ported yet: "
-                                  "ROADMAP Queue 1 item 5 (distribution)")
+        check_training_mesh(mesh, trainer)
     dataset = WiderFaceDataset(train_anno, size=trainer.input_size)
     val_dataset = (WiderFaceDataset(val_anno, size=trainer.input_size)
                    if val_anno else None)
+    if mesh is not None and mesh.world_size > 1:
+        i, n = mesh.rank, mesh.world_size
+        if shard == "records":
+            if cfg.max_gt is None:
+                raise ValueError("multi-process training requires cfg.max_gt: the ranks' "
+                                 "GT pads must agree")
+            dataset.records = dataset.records[i::n]
+            dataset.rng = np.random.RandomState(1 + i)
+        elif shard == "rows":
+            rows = slice(*multihost.process_batch_bounds(cfg.batch_size, i, n))
+        else:
+            raise ValueError(f"shard must be 'records' or 'rows', got {shard!r}")
     stats = {} if stats is None else stats
     batches = prefetch_batches(dataset, cfg.batch_size, pin=trainer.device.type == "cuda",
                                stats=stats)
     try:
-        return _training_loop(trainer, batches, cfg, val_dataset, log, stats)
+        return _training_loop(trainer, batches, cfg, val_dataset, log, stats, rows)
     finally:
         batches.close()  # stop the prefetch worker
 
 
-def _training_loop(trainer, batches, cfg, val_dataset, log, stats):
+def _training_loop(trainer, batches, cfg, val_dataset, log, stats, rows):
     from fdt_torch.utils.watchdog import StallWatchdog
     with StallWatchdog(cfg.stall_timeout, name=cfg.name,
                        startup_limit_s=cfg.startup_timeout) as watchdog:
         return _training_loop_inner(trainer, batches, cfg, val_dataset, log, stats,
-                                    watchdog)
+                                    watchdog, rows)
 
 
-def _training_loop_inner(trainer, batches, cfg, val_dataset, log, stats, watchdog):
+def _padded(images, targets, max_gt, rows):
+    """(images, gt_boxes, gt_labels, gt_valid) of a batch, the GT padded over
+    the whole batch and then cut to this rank's `rows` (all when None)."""
+    batch = (images, *pad_targets(targets, max_gt))
+    return batch if rows is None else tuple(x[rows] for x in batch)
+
+
+def _training_loop_inner(trainer, batches, cfg, val_dataset, log, stats, watchdog, rows):
     history = LossHistory(cfg.save_point)
     eval_losses: list[float] = []
     step_index = 0
@@ -162,8 +214,7 @@ def _training_loop_inner(trainer, batches, cfg, val_dataset, log, stats, watchdo
             lr = cfg.lr * (cfg.gamma ** step_index)
             log(f"adjusting lr to {lr}")
 
-        gt_boxes, gt_labels, gt_valid = pad_targets(targets, cfg.max_gt)
-        metrics = trainer.train_step(images, gt_boxes, gt_labels, gt_valid, lr,
+        metrics = trainer.train_step(*_padded(images, targets, cfg.max_gt, rows), lr,
                                      freeze=iteration < cfg.train_pretrain)
         history.append(metrics)
         stats["iterations"] += 1
@@ -181,8 +232,7 @@ def _training_loop_inner(trainer, batches, cfg, val_dataset, log, stats, watchdo
             loss_val, n = 0.0, 0
             for img_e, tgt_e in val_dataset.batches(cfg.batch_size):
                 n += 1
-                gb, gl, gv = pad_targets(tgt_e, cfg.max_gt)
-                loss_val += float(trainer.eval_loss(img_e, gb, gl, gv))
+                loss_val += float(trainer.eval_loss(*_padded(img_e, tgt_e, cfg.max_gt, rows)))
                 watchdog.beat()
                 if n > cfg.eval_batches:
                     break
@@ -190,15 +240,23 @@ def _training_loop_inner(trainer, batches, cfg, val_dataset, log, stats, watchdo
             log(f"eval loss = {eval_losses[-1]:.5f}")
 
         if iteration % cfg.save_point == 0:
-            path = save_checkpoint(trainer, cfg.save_folder, cfg.name, iteration)
-            history.save(f"{cfg.save_folder}/{cfg.name}_loss_{iteration}.npy")
-            if eval_losses:
-                np.save(f"{cfg.save_folder}/{cfg.name}_eval_loss_{iteration}.npy",
-                        np.array(eval_losses))
-                eval_losses = []
-            log(f"saved {path}")
+            # rank 0 writes (every rank holds the same state); the others
+            # drop their copy of the history and wait for the files
+            if multihost.is_main():
+                path = save_checkpoint(trainer, cfg.save_folder, cfg.name, iteration)
+                history.save(f"{cfg.save_folder}/{cfg.name}_loss_{iteration}.npy")
+                if eval_losses:
+                    np.save(f"{cfg.save_folder}/{cfg.name}_eval_loss_{iteration}.npy",
+                            np.array(eval_losses))
+                log(f"saved {path}")
+            else:
+                history.reset()
+            eval_losses = []
+            multihost.barrier()
 
-    save_checkpoint(trainer, cfg.save_folder, cfg.name, cfg.total_iters)
+    if multihost.is_main():
+        save_checkpoint(trainer, cfg.save_folder, cfg.name, cfg.total_iters)
+    multihost.barrier()
     if trainer.device.type == "cuda":
         torch.cuda.synchronize(trainer.device)
     stats["wall_s"] = time.perf_counter() - t_loop

@@ -21,7 +21,8 @@ METRICS = ("loss", "loc", "conf")
 
 
 class FaceBoxTrainer(DeviceTrainer):
-    """The FaceBoxes train step on one device.
+    """The FaceBoxes train step on one device, or on one rank of a
+    data-parallel group, fdt's DP step (fdt_torch.train.loops' docstring).
 
     Args:
       model: a FaceBox with its starting weights (the CLI's are xavier_init's),
@@ -29,6 +30,8 @@ class FaceBoxTrainer(DeviceTrainer):
       cfg: the FaceBoxConfig of the default boxes and the match threshold.
       precision, dtype, device: as DeviceTrainer (device None is the card).
     """
+
+    data_parallel = True
 
     def __init__(self, model: FaceBox, cfg: FaceBoxConfig = FACEBOX, negpos_ratio: int = 3,
                  momentum: float = 0.9, weight_decay: float = 5e-4, precision: str = "default",
@@ -55,10 +58,14 @@ class FaceBoxTrainer(DeviceTrainer):
     def train_step(self, images, gt_boxes, gt_labels, gt_valid, lr: float) -> dict:
         """One SGD step on NHWC BGR images [B, S, S, 3] (0-255) and padded GT
         (fdt_torch.train.pad_targets; labels 1 for faces); returns {"loss",
-        "loc", "conf"} as 0-d tensors on the device."""
+        "loc", "conf"} as 0-d tensors on the device (global under a process
+        group, whose ranks each pass their rows of the global batch)."""
+        group = self._group()
         self.model.train()
         with tf32_for(self.precision):
             loss, parts = self._losses(images, gt_boxes, gt_labels, gt_valid)
             loss.backward()
+        if group is not None:
+            self._sum_gradients()
         self._optimizer_step(lr)
-        return dict(zip(METRICS, (t.detach() for t in (loss, *parts))))
+        return self._metrics(METRICS, loss, *parts)

@@ -14,6 +14,16 @@ history (counterpart of fdt/train/loops.py).
 The trainer owns the model (train mode, on its device), the optimizer and
 the step; train-mode BatchNorm stores the biased batch variance as flax does
 (fdt_torch.models.common.BatchNorm2d).
+
+Data parallelism (fdt's step sharded over a mesh): while a torch.distributed
+process group exists, each rank runs the step on its rows of the global
+batch.  BatchNorm's statistics and the loss's positive count are the global
+batch's (fdt_torch.models.common, fdt_torch.train.multibox_loss), so each
+rank's loss is its part of the one global loss; after the backward the
+gradients are summed over the ranks in one flat all-reduce (the frozen
+parameters left out on every rank alike), the logged losses too, and
+rank 0's parameters and statistics are broadcast before the first step.
+The ranks then take the same update and stay equal bit for bit.
 """
 from __future__ import annotations
 
@@ -26,6 +36,7 @@ import torch
 
 from fdt_torch.anchors import pyramid_face_priors, pyramid_head_priors
 from fdt_torch.config import PYRAMID_CONFIGS, PyramidConfig
+from fdt_torch.dist import multihost
 from fdt_torch.infer.pyramidbox import _check_precision, _resolve_device, tf32_for
 from fdt_torch.models.common import checkpoint, running_stats_frozen
 from fdt_torch.models.loader import flax_paths
@@ -119,8 +130,12 @@ class DeviceTrainer:
       dtype: torch.float32, or torch.bfloat16: the forward and backward under
         autocast, float32 parameters, optimizer state and loss.
       device: None → "cuda" (raises if absent); "cpu" for the CPU.
-    A subclass sets `self.optimizer`.
+    A subclass sets `self.optimizer`, and `data_parallel = True` when its
+    step has fdt's data-parallel form (train_step calls _group() first and
+    _sum_gradients() after the backward).
     """
+
+    data_parallel = False
 
     def __init__(self, model, precision: str = "default",
                  dtype: torch.dtype = torch.float32, device=None):
@@ -133,6 +148,48 @@ class DeviceTrainer:
                               else torch.contiguous_format)
         self.model = model.to(self.device, memory_format=self.memory_format).train()
         self.step = 0
+        self._replicas_synced = False
+
+    def _group(self):
+        """The process group while one exists (None otherwise); before this
+        trainer's first step under it, rank 0's parameters and buffers are
+        broadcast to every rank."""
+        group = multihost.group()
+        if group is not None:
+            self._check_data_parallel()
+            if not self._replicas_synced:
+                multihost.broadcast_module(self.model)
+                self._replicas_synced = True
+        return group
+
+    def _check_data_parallel(self) -> None:
+        if multihost.group() is not None and not self.data_parallel:
+            raise NotImplementedError(f"{type(self).__name__} has no data-parallel step "
+                                      "(fdt's has none either)")
+
+    @torch.no_grad()
+    def _sum_gradients(self, skip=None) -> None:
+        """Σ over the ranks of every gradient, in one flat all-reduce; the
+        parameters that `skip(name)` names (frozen ones) and those without a
+        gradient are left out, on every rank alike."""
+        grads = [p.grad for name, p in self.model.named_parameters()
+                 if p.grad is not None and not (skip is not None and skip(name))]
+        if not grads:
+            return
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        torch.distributed.all_reduce(flat)
+        for g, v in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(v.view_as(g))
+
+    @staticmethod
+    def _metrics(names, *values) -> dict:
+        """The step's metrics as 0-d tensors; under a process group each is
+        summed over the ranks (the parts of one global loss), so every rank
+        logs the global values."""
+        values = [v.detach() for v in values]
+        if multihost.group() is not None:
+            values = list(multihost.sum_over_ranks(torch.stack(values)))
+        return dict(zip(names, values))
 
     def _put(self, x, dtype=None) -> torch.Tensor:
         x = torch.from_numpy(np.ascontiguousarray(x)) if isinstance(x, np.ndarray) else x
@@ -157,6 +214,7 @@ class DeviceTrainer:
         zeros (fdt's gradient of an unused leaf; weight decay and momentum
         still move it), `zero_grad(name)` zeroes a frozen one's, `lr` (when
         given) is set on every group, then one optimizer step."""
+        self._check_data_parallel()
         for name, p in self.model.named_parameters():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -171,7 +229,8 @@ class DeviceTrainer:
 
 
 class PyramidTrainer(DeviceTrainer):
-    """The train step of a PyramidBox variant on one device.
+    """The train step of a PyramidBox variant on one device, or on one rank
+    of a data-parallel group (see the module's docstring).
 
     Args:
       model: the variant's model (fdt_torch.models.build_pyramidbox; with
@@ -186,6 +245,8 @@ class PyramidTrainer(DeviceTrainer):
         autocast, float32 parameters, optimizer state and loss.
       device: None → "cuda" (raises if absent); "cpu" for the CPU.
     """
+
+    data_parallel = True
 
     def __init__(self, model, cfg: PyramidConfig | str = "repo", input_size: int = 640,
                  loss_cfg: MultiBoxLossConfig = MultiBoxLossConfig(),
@@ -228,21 +289,29 @@ class PyramidTrainer(DeviceTrainer):
     def train_step(self, images, gt_boxes, gt_labels, gt_valid, lr: float,
                    freeze: bool = False) -> dict:
         """One SGD step; returns the metrics as 0-d tensors on the device
-        (no host synchronisation)."""
+        (no host synchronisation).  Under a process group the batch is this
+        rank's rows of the global batch and the metrics are global."""
+        group = self._group()
         self.model.train()
         with tf32_for(self.precision):
             loss, parts = self._losses(images, gt_boxes, gt_labels, gt_valid)
             loss.backward()
-        self._optimizer_step(lr, self.freeze_predicate if freeze else None)
-        return dict(zip(METRICS, (t.detach() for t in (loss, *parts))))
+        frozen = self.freeze_predicate if freeze else None
+        if group is not None:
+            self._sum_gradients(frozen)
+        self._optimizer_step(lr, frozen)
+        return self._metrics(METRICS, loss, *parts)
 
     def eval_loss(self, images, gt_boxes, gt_labels, gt_valid) -> torch.Tensor:
         """Validation loss as fdt computes it: a train-mode forward
         (BatchNorm on batch statistics) whose statistics are dropped, so the
-        running statistics, the parameters and the step stay as they were."""
+        running statistics, the parameters and the step stay as they were.
+        Under a process group: the global batch's loss, on every rank."""
+        self._group()
         self.model.train()
         with torch.no_grad(), running_stats_frozen(), tf32_for(self.precision):
-            return self._losses(images, gt_boxes, gt_labels, gt_valid)[0]
+            return multihost.sum_over_ranks(
+                self._losses(images, gt_boxes, gt_labels, gt_valid)[0])
 
 
 def check_float32(out: dict, keys) -> None:
@@ -264,6 +333,13 @@ class LossHistory:
         self.buf = np.zeros((5, save_point + 1))
         self.idx = 0
 
+    def reset(self) -> None:
+        """Drop the history kept since the last save (a rank that does not
+        write the loss files, as fdt's other processes)."""
+        self.pending = []
+        self.buf = np.zeros_like(self.buf)
+        self.idx = 0
+
     def append(self, metrics: dict) -> None:
         self.pending.append(torch.stack([metrics[k].float() for k in METRICS]))
 
@@ -282,5 +358,4 @@ class LossHistory:
     def save(self, path: str) -> None:
         self.drain()
         np.save(path, self.buf)
-        self.buf = np.zeros_like(self.buf)
-        self.idx = 0
+        self.reset()

@@ -7,7 +7,9 @@ fdt/train/multibox_loss.py), fixed-shape and on the device.
     `jnp.argsort`s (stable), so tied CE values pick the same negatives;
     num_neg = clamp(ratio·num_pos, max=P-1);
   * normalised by the total positives N; an empty selection gives
-    loss_c = 10 and N = 1; N == 0 gives N = batch size.
+    loss_c = 10 and N = 1; N == 0 gives N = batch size.  Under a
+    torch.distributed process group N, the selection and the batch size are
+    the global batch's, and each rank returns its part of the global loss.
 
 The loss math runs in float32; no gradient flows into the targets.
 """
@@ -18,6 +20,7 @@ from typing import Tuple
 
 import torch
 
+from fdt_torch.dist import multihost
 from fdt_torch.geometry.matching import match_default, match_ensure_max_prior
 
 
@@ -68,10 +71,17 @@ def multibox_loss_from_targets(loc_data, conf_data, loc_t, conf_t, negpos_ratio:
         num_pos = pos.sum(dim=1, keepdim=True)                 # [B, 1]
         num_neg = torch.clamp(negpos_ratio * num_pos, max=p - 1)
         sel = pos | (rank < num_neg)
-        has_sel = sel.any()
-        n = num_pos.sum().float()
+        # the global batch's positives, selection and size: this rank's own,
+        # or, under a process group, summed over the ranks (fdt's step is one
+        # graph over the global batch; each rank returns its part of the
+        # global loss, and the parts sum to it)
+        counts = multihost.sum_over_ranks(torch.stack([
+            num_pos.sum().float(), sel.sum().float(),
+            torch.full((), float(b), device=num_pos.device)]))
+        n, has_sel, b = counts[0], counts[1] > 0, counts[2]
         n = torch.where(has_sel, n, torch.ones_like(n))
-        n = torch.where(n == 0, torch.full_like(n, float(b)), n)
+        n = torch.where(n == 0, b, n)
     loss_c = torch.sum(ce * sel)
-    loss_c = torch.where(has_sel, loss_c, torch.full_like(loss_c, 10.0))
+    empty = 10.0 if multihost.is_main() else 0.0  # one rank carries the constant
+    loss_c = torch.where(has_sel, loss_c, torch.full_like(loss_c, empty))
     return loss_l / n, loss_c / n

@@ -772,3 +772,25 @@ def test_inception_on_card_matches_cpu(card):
         with tf32_for("highest"):
             got = model.to(card)(images.to(card))
     chip_smoke.check_inception(got, want)
+
+
+def test_dp_inference_on_every_card_launches_there(card):
+    """try3 on make_mesh over every card (two slots of cuda:0 on a one-card
+    machine), 5 images: each card's shard runs K1 there, checked against
+    its plain version on the same boxes (chip_smoke.k1_checked), and the
+    answer equals the unsharded detector's within fdt's DP tolerance."""
+    from fdt_torch.dist import make_mesh
+    from fdt_torch.models import load_pyramidbox_detector
+
+    n = torch.cuda.device_count()
+    mesh = make_mesh(devices=[torch.device("cuda", 0)] * 2) if n == 1 else make_mesh(n)
+    path = str(REPO / chip_smoke.VARIANT_WEIGHTS["try3"])
+    det = load_pyramidbox_detector("try3", path, device="cuda:0")
+    det_dp = load_pyramidbox_detector("try3", path, mesh=mesh)
+    images = np.random.RandomState(8).randint(0, 256, (5, 128, 128, 3), dtype=np.uint8)
+    record = {}
+    with chip_smoke.k1_checked(record):
+        got = det_dp.detect_tensor(images, conf_thresh=0.05)
+    assert sorted(record) == sorted(str(d) for d in mesh.distinct)
+    assert all(err == 0 for _, err in record.values())
+    chip_smoke.check_dp_detections(got, det.detect_tensor(images, conf_thresh=0.05))

@@ -397,13 +397,13 @@ def test_cli_help(name):
 
 @pytest.mark.parametrize("flag", [
     ["--quant", "int8", "--detector", "mtcnn", "--weights", "p.npz,r.npz,o.npz"],
-    ["--dp_devices", "2"]])
+    ["--dp_devices", "2", "--detector", "mtcnn", "--weights", "p.npz,r.npz,o.npz"]])
 def test_serve_cli_refuses_what_is_not_ported(flag):
-    """--dp_devices is not ported; --quant int8 is (pyramid and facebox, in
-    tests/test_torch_quant_detectors.py) and, as in fdt, refused for the
-    mtcnn cascade."""
+    """--quant int8 and --dp_devices serve the pyramid and facebox families
+    (tests/test_torch_quant_detectors.py, tests/test_torch_dist.py) and, as
+    in fdt, are refused for the mtcnn cascade."""
     from fdt_torch.cli import serve
-    with pytest.raises(SystemExit, match="not ported|not supported for the mtcnn"):
+    with pytest.raises(SystemExit, match="not supported for the mtcnn|not wired for the mtcnn"):
         serve.main(flag + ["--device", "cpu", "--no_warmup"])
 
 

@@ -66,7 +66,9 @@ def test_every_module_imports_without_building_kernels():
             "fdt_torch.cli.gen_mtcnn_data", "fdt_torch.models.torch_convert",
             "fdt_torch.models.inception_resnet_v2", "fdt_torch.cli.train_chained",
             "fdt_torch.cli.export_weights", "fdt_torch.cli.select_checkpoint",
-            "fdt_torch.cli.gen_anno", "fdt_torch.utils.visualize"} <= set(names)
+            "fdt_torch.cli.gen_anno", "fdt_torch.utils.visualize", "fdt_torch.dist",
+            "fdt_torch.dist.mesh", "fdt_torch.dist.multihost",
+            "fdt_torch.dist.procutil"} <= set(names)
     for name in names:
         importlib.import_module(name)
     assert _build._lib is None

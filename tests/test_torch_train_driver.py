@@ -154,10 +154,15 @@ def test_cli_resumes_from_its_checkpoint(tmp_path, capsys):
         assert int(z["step"]) == 4
 
 
-@pytest.mark.parametrize("flag", [["--dp_devices", "2"], ["--sp_devices", "2"],
-                                  ["--num_processes", "2"]])
-def test_cli_refuses_what_this_slice_does_not_bring(flag):
-    with pytest.raises(SystemExit, match="not ported|Queue 1 item 5"):
+@pytest.mark.parametrize("flag,message", [
+    (["--dp_devices", "2", "--batch_size", "7"], "does not divide over --dp_devices 2"),
+    (["--sp_devices", "2"], "data x space mesh.*next slice.*Queue 1 item 5"),
+    (["--num_processes", "2"], "requires --max_gt")], ids=["flag0", "flag1", "flag2"])
+def test_cli_refuses_what_this_slice_does_not_bring(flag, message):
+    """The data x space mesh is the next slice; --dp_devices and
+    --num_processes take fdt's rules (a batch that divides over the ranks,
+    --max_gt across processes; tests/test_torch_dist.py runs them)."""
+    with pytest.raises(SystemExit, match=message):
         train_pyramid.main(flag)
 
 
@@ -178,9 +183,13 @@ def test_cli_defaults_are_fdt_scripts():
 
 
 def test_mesh_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    """A mesh of several devices in one process is not a training mesh: the
+    port trains one process a device, started by the CLI (fdt's
+    single-process mesh has no counterpart; ROADMAP Queue 3)."""
+    from fdt_torch.dist import make_mesh
+    with pytest.raises(ValueError, match="one device.*fdt_torch.cli.train_pyramid --dp_devices"):
         run_pyramid_training(trainer(), str(write_dataset(tmp_path, 2)), TrainConfig(),
-                             mesh=object())
+                             mesh=make_mesh(devices=["cpu"] * 2))
 
 
 def test_prefetch_batches_float16_and_shutdown():
