@@ -5048,11 +5048,15 @@ def check_dist_step(got, want, before: dict, what: str) -> dict:
 def dist_rank_main(argv) -> int:
     """One rank of a DP train job: `spec.json rank`.  spec: "coordinator",
     "world", "out", "size", "batch" (the global batch), "backend" ("gloo"
-    or "nccl"), "devices" (one a rank) and "timed" (default true).  The
-    flagship on the rank's device, its rows of the global batch, DIST_STEPS
-    steps, then, timed and on a card, the ms of 3 more by CUDA events;
-    writes rank<r>.npz."""
-    from fdt_torch.dist import multihost
+    or "nccl"), "devices" (one a rank), "timed" (default true), and for the
+    2-D mesh "space" (the space size s: a (world/s) x s make_mesh_2d, the
+    rank's rows and band of the batch), "seed" (the batch's, default
+    TRAIN_SEED + 3), "go" (a file to wait for before the trainer is built)
+    and "save_state" (rank 0 writes its state dict).  The flagship on the
+    rank's device, its part of the global batch, DIST_STEPS steps, then,
+    timed and on a card, the ms of 3 more by CUDA events and the peak memory
+    of trainer and steps; writes rank<r>.npz."""
+    from fdt_torch.dist import make_mesh_2d, multihost, shard_train_batch
     from fdt_torch.models.loader import load_pyramidbox
     spec = json.loads(pathlib.Path(argv[0]).read_text())
     rank = int(argv[1])
@@ -5060,46 +5064,74 @@ def dist_rank_main(argv) -> int:
     multihost.initialize(spec["coordinator"], spec["world"], rank, device=device,
                          backend=spec["backend"], timeout_s=DIST_TIMEOUT_S)
     try:
-        trainer = dist_flagship(device, load_pyramidbox(str(WEIGHTS)).state_dict(), size)
-        lo, hi = multihost.process_batch_bounds(spec["batch"])
-        batch = tuple(x[lo:hi] for x in train_batch(TRAIN_SEED + 3, spec["batch"], size))
+        n_space = spec.get("space", 1)
+        batch = train_batch(spec.get("seed", TRAIN_SEED + 3), spec["batch"], size)
+        if n_space > 1:
+            mesh = make_mesh_2d(spec["world"] // n_space, n_space, devices=spec["devices"])
+            batch = shard_train_batch(mesh, batch)
+        else:
+            lo, hi = multihost.process_batch_bounds(spec["batch"])
+            batch = tuple(x[lo:hi] for x in batch)
+        weights = load_pyramidbox(str(WEIGHTS)).state_dict()
+        if spec.get("go"):
+            _wait_for(pathlib.Path(spec["go"]))
+        base = 0
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+            base = torch.cuda.memory_allocated(device)
+        trainer = dist_flagship(device, weights, size)
         t0 = time.perf_counter()
         metrics, variables = dist_steps(trainer, batch)
-        step_ms = 0.0
+        step_ms, peak = 0.0, 0
         if device.type == "cuda":
             torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(device) - base
         seconds = time.perf_counter() - t0
         if device.type == "cuda" and spec.get("timed", True):
             step_ms = _cuda_ms(lambda: trainer.train_step(*batch, TRAIN_LR), 3)
+        if spec.get("save_state") and rank == 0:
+            torch.save({k: v.cpu() for k, v in trainer.model.state_dict().items()},
+                       pathlib.Path(spec["out"]) / "state.pt")
         np.savez(pathlib.Path(spec["out"]) / f"rank{rank}.npz", metrics=metrics,
-                 seconds=seconds, step_ms=step_ms,
+                 seconds=seconds, step_ms=step_ms, peak_bytes=peak,
                  **{f"v/{k}": v for k, v in variables.items()})
     finally:
         multihost.shutdown()
     return 0
 
 
-def run_dist_ranks(spec: dict) -> list:
+def _wait_for(path: pathlib.Path) -> None:
+    """Until `path` exists (DIST_TIMEOUT_S at most)."""
+    end = time.monotonic() + DIST_TIMEOUT_S
+    while not path.exists():
+        if time.monotonic() > end:
+            raise TimeoutError(f"{path} never came")
+        time.sleep(0.1)
+
+
+def run_dist_ranks(spec: dict, out: str | None = None) -> list:
     """dist_rank_main as spec["world"] processes under one shared deadline;
-    [(metrics, variables, seconds, step_ms)] by rank.  Raises unless the
-    ranks' metrics and variables are bit-equal."""
+    [(metrics, variables, seconds, step_ms, peak_bytes)] by rank (their files
+    in `out`, a temporary directory when None).  Raises unless the ranks'
+    metrics and variables are bit-equal."""
     import tempfile
 
     from fdt_torch.dist import procutil
     with tempfile.TemporaryDirectory() as tmp:
+        out = out or tmp
         path = pathlib.Path(tmp) / "spec.json"
-        path.write_text(json.dumps({**spec, "out": tmp}))
+        path.write_text(json.dumps({**spec, "out": out}))
         prog = "import sys, chip_smoke; sys.exit(chip_smoke.dist_rank_main(sys.argv[1:]))"
         procutil.python_workers([["-c", prog, str(path), str(r)] for r in range(spec["world"])],
                                 DIST_TIMEOUT_S, env=procutil.child_env(2),
                                 cwd=str(REPO))
         ranks = []
         for r in range(spec["world"]):
-            with np.load(pathlib.Path(tmp) / f"rank{r}.npz") as z:
+            with np.load(pathlib.Path(out) / f"rank{r}.npz") as z:
                 ranks.append((z["metrics"], {k[2:]: z[k] for k in z.files if k.startswith("v/")},
-                              float(z["seconds"]), float(z["step_ms"])))
+                              float(z["seconds"]), float(z["step_ms"]), int(z["peak_bytes"])))
     m0, v0 = ranks[0][:2]
-    for m, v, _, _ in ranks[1:]:
+    for m, v, *_ in ranks[1:]:
         if not (np.array_equal(m0, m) and v0.keys() == v.keys()
                 and all(np.array_equal(v0[k], v[k]) for k in v0)):
             raise AssertionError("dist: the ranks differ")
@@ -5123,7 +5155,7 @@ def check_dp_detections(got: np.ndarray, want: np.ndarray) -> float:
 
 
 def phase_dist(device) -> dict:
-    """Data parallelism on the one card (fdt_torch.dist), three legs, each
+    """Data parallelism on the one card (fdt_torch.dist), four legs, each
     with its [dist] line:
       (a) the flagship's DP train step at 640², batch 2, float32 "highest",
           through NCCL at world size 1, against the one-device step (the DP
@@ -5136,10 +5168,19 @@ def phase_dist(device) -> dict:
           images (the last shard padded), float32 against the unsharded
           detector (check_dp_detections) and int8 against the unsharded
           int8 detector on each shard's rows (an activation's int8 scale is
-          its shard's amax), K1, K4 and K5 launches counted.
+          its shard's amax), K1, K4 and K5 launches counted;
+      (d) the data x space mesh: two gloo ranks on cuda:0 as a 1 x 2 mesh
+          (make_mesh_2d: each rank the upper or lower band of every map's
+          rows, halos exchanged) take (a)'s step on (a)'s 2 images: ranks
+          bit-equal after 2 steps and both against (a)'s one-device step,
+          each rank's peak memory and ms a step against the one-device
+          step's, then rank 0's weights detect one 640² batch through K1.
     (b)'s ranks start first, on a thread, and (b)'s reference and (c) run
-    while they start up; (a), which is timed, runs after they are done.
-    Returns the launches of (c) and the errors."""
+    while they start up; (d)'s ranks start up while (a), which is timed,
+    runs, and wait for it to end before they build their trainers.  Returns
+    the launches of (c) and (d) and the errors."""
+    import tempfile
+
     from fdt_torch.dist import procutil
     from fdt_torch.models.loader import load_pyramidbox
 
@@ -5149,16 +5190,16 @@ def phase_dist(device) -> dict:
     t0 = time.perf_counter()
     job: dict = {}
 
-    def ranks():
+    def ranks(key: str, spec: dict, out: str | None = None):
         try:
-            job["ranks"] = run_dist_ranks({
-                "coordinator": f"127.0.0.1:{procutil.free_port()}", "world": 2, "size": SIZE,
-                "batch": DIST_GLOO_BATCH, "backend": "gloo", "devices": [str(device)] * 2,
-                "timed": False})
+            job[key] = run_dist_ranks(spec, out)
         except BaseException as e:  # noqa: BLE001 — re-raised on the main thread
             job["error"] = e
 
-    thread = threading.Thread(target=ranks)
+    thread = threading.Thread(target=ranks, args=("gloo", {
+        "coordinator": f"127.0.0.1:{procutil.free_port()}", "world": 2, "size": SIZE,
+        "batch": DIST_GLOO_BATCH, "backend": "gloo", "devices": [str(device)] * 2,
+        "timed": False}))
     thread.start()
     try:
         want, before = dist_reference(device, weights, DIST_GLOO_BATCH)
@@ -5167,19 +5208,75 @@ def phase_dist(device) -> dict:
         thread.join()
     if "error" in job:
         raise job["error"]
-    gloo = check_dist_step(job["ranks"][0][:2], want, before, "dist gloo 2 ranks")
+    gloo = check_dist_step(job["gloo"][0][:2], want, before, "dist gloo 2 ranks")
     print("[dist] train_gloo_2ranks " + json.dumps({
         "global_batch": DIST_GLOO_BATCH, "size": SIZE, "steps": DIST_STEPS,
         "ranks_bit_equal": True, **gloo,
-        "rank_seconds_for_steps": [round(r[2], 3) for r in job["ranks"]], "card": card}),
+        "rank_seconds_for_steps": [round(r[2], 3) for r in job["gloo"]], "card": card}),
         flush=True)
     _phase("dist_train_gloo_and_infer", t0,
            loss_rel_err=[f"{e:.3g}" for e in gloo["loss_rel_err"]])
 
-    t0 = time.perf_counter()
-    nccl = _dist_train_nccl1(device, weights, card)
-    _phase("dist_train_nccl", t0, loss_rel_err=[f"{e:.3g}" for e in nccl["loss_rel_err"]])
+    with tempfile.TemporaryDirectory() as tmp:
+        go = pathlib.Path(tmp) / "go"
+        thread = threading.Thread(target=ranks, args=("space", {
+            "coordinator": f"127.0.0.1:{procutil.free_port()}", "world": 2, "space": 2,
+            "size": SIZE, "batch": DIST_BATCH, "seed": TRAIN_SEED + 2, "backend": "gloo",
+            "devices": [str(device)] * 2, "go": str(go), "save_state": True}, tmp))
+        thread.start()
+        try:
+            t0 = time.perf_counter()
+            nccl, one = _dist_train_nccl1(device, weights, card)
+            _phase("dist_train_nccl", t0,
+                   loss_rel_err=[f"{e:.3g}" for e in nccl["loss_rel_err"]])
+            t0 = time.perf_counter()
+        finally:
+            go.touch()
+            thread.join()
+        if "error" in job:
+            raise job["error"]
+        infer["launches"]["k1"] += _dist_space_leg(device, job["space"], one, tmp, card)
+    _phase("dist_train_space", t0)
     return infer
+
+
+def _dist_space_leg(device, ranks: list, one: dict, tmp: str, card: str) -> int:
+    """Leg (d) of phase_dist, after its ranks: their steps against (a)'s
+    one-device step, and a detect of rank 0's weights; returns its K1
+    launches."""
+    from fdt_torch.infer import PyramidBoxDetector
+    from fdt_torch.models import PyramidBox
+    from fdt_torch.ops import nms as nms_op
+
+    space = check_dist_step(ranks[0][:2], one["steps"], one["before"], "dist space 1x2")
+    model = PyramidBox()
+    model.load_state_dict(torch.load(pathlib.Path(tmp) / "state.pt", weights_only=True))
+    det = PyramidBoxDetector(model, device=device)
+    frames = torch.from_numpy(flagship_batch()).to(device)
+    det.detect_tensor(frames, DIST_CONF)  # the first call at this shape plans cuDNN's convs
+    torch.cuda.synchronize()
+    nms_op.launches.reset()
+    rows = det.detect_tensor(frames, DIST_CONF)
+    torch.cuda.synchronize()
+    k1 = nms_op.launches.count
+    if rows.shape != (len(frames), 2, 750, 5) or not np.isfinite(rows).all() or not k1:
+        raise AssertionError(f"dist space: the trained weights' detect gave {rows.shape}, "
+                             f"{k1} K1 launches")
+    print("[dist] train_space_1x2 " + json.dumps({
+        "mesh": {"data": 1, "space": 2}, "backend": "gloo", "batch": DIST_BATCH, "size": SIZE,
+        "steps": DIST_STEPS, "ranks_bit_equal": True, **space,
+        "rank_peak_mib": [round(r[4] / 2 ** 20, 1) for r in ranks],
+        "one_device_peak_mib": round(one["peak_bytes"] / 2 ** 20, 1),
+        "rank_peak_share": [round(r[4] / one["peak_bytes"], 4) for r in ranks],
+        "rank_step_ms": [round(r[3], 3) for r in ranks],
+        "one_device_step_ms": round(one["ms"], 3),
+        "rank_seconds_for_steps": [round(r[2], 3) for r in ranks],
+        "detect": {"images": len(frames), "k1_launches": k1,
+                   "faces": int((rows[:, 1, :, 0] > 0).sum())},
+        "note": "both ranks share the one card", "card": card}), flush=True)
+    del det, model
+    torch.cuda.empty_cache()
+    return k1
 
 
 def dist_reference(device, weights, batch: int) -> tuple:
@@ -5191,15 +5288,22 @@ def dist_reference(device, weights, batch: int) -> tuple:
     return dist_steps(one, train_batch(TRAIN_SEED + 3, batch, SIZE)), before
 
 
-def _dist_train_nccl1(device, weights, card: str) -> dict:
-    """Leg (a) of phase_dist."""
+def _dist_train_nccl1(device, weights, card: str) -> tuple[dict, dict]:
+    """Leg (a) of phase_dist: (its errors, the one-device step's "steps"
+    (metrics, variables), "before" variables, "ms" and "peak_bytes", the
+    peak memory its trainer and steps took)."""
     from fdt_torch.dist import multihost, procutil
     from fdt_torch.models.loader import flat_variables, to_jax_variables
 
     batch = train_batch(TRAIN_SEED + 2, DIST_BATCH, SIZE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
     one = dist_flagship(device, weights, SIZE)
     before = flat_variables(to_jax_variables(one.model))
     want = dist_steps(one, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(device) - base
     one_ms = _cuda_ms(lambda: one.train_step(*batch, TRAIN_LR), 3)
     del one
     multihost.initialize(f"127.0.0.1:{procutil.free_port()}", 1, 0, device=device)
@@ -5211,12 +5315,13 @@ def _dist_train_nccl1(device, weights, card: str) -> dict:
     finally:
         multihost.shutdown()
     del dp
+    torch.cuda.empty_cache()
     nccl = check_dist_step(got, want, before, "dist nccl world 1")
     print("[dist] train_nccl_world1 " + json.dumps({
         "backend": backend, "batch": DIST_BATCH, "size": SIZE, "steps": DIST_STEPS, **nccl,
         "dp_step_ms": round(dp_ms, 3), "one_device_step_ms": round(one_ms, 3),
-        "card": card}), flush=True)
-    return nccl
+        "one_device_peak_mib": round(peak / 2 ** 20, 1), "card": card}), flush=True)
+    return nccl, {"steps": want, "before": before, "ms": one_ms, "peak_bytes": peak}
 
 
 def _dist_infer_2slot(device, weights, card: str) -> dict:
@@ -5331,12 +5436,15 @@ def phase_dist_cards(cards: int) -> dict:
         640², 2 rows a rank, against the one-card step on the global batch,
         ranks bit-equal; each rank's ms a step against the one card's at
         batch 2 and at the global batch;
-      * python -m fdt_torch.cli.train_pyramid --dp_devices `cards` for 3
-        iterations of the flagship at 640², batch 2 a rank, on seeded images
-        of data/mini/gen_anno_file_mini_train.
+      * the data x space mesh: `cards` NCCL ranks as a (cards/2) x 2 mesh
+        (make_mesh_2d) of the flagship's step at 640², 1 image a data index,
+        against the one-card step on the same images, ranks bit-equal; each
+        rank's ms a step and peak memory against the one card's;
+      * python -m fdt_torch.cli.train_pyramid --dp_devices `cards`, then
+        --dp_devices cards/2 --sp_devices 2, for 3 iterations of the flagship
+        at 640², 2 images a data index, on seeded images of
+        data/mini/gen_anno_file_mini_train.
     """
-    import tempfile
-
     from fdt_torch.dist import make_mesh, procutil
     from fdt_torch.infer import PyramidBoxDetector
     from fdt_torch.models.loader import flat_variables, load_pyramidbox, to_jax_variables
@@ -5444,23 +5552,62 @@ def phase_dist_cards(cards: int) -> dict:
     _phase("dist_cards_train", t0)
 
     t0 = time.perf_counter()
+    n_data = cards // 2
+    batch = train_batch(TRAIN_SEED + 3, n_data, SIZE)
+    torch.cuda.reset_peak_memory_stats(home)
+    base = torch.cuda.memory_allocated(home)
+    one = dist_flagship(home, weights, SIZE)
+    before = flat_variables(to_jax_variables(one.model))
+    want = dist_steps(one, batch)
+    torch.cuda.synchronize(home)
+    one_peak = torch.cuda.max_memory_allocated(home) - base
+    one_ms = _cuda_ms(lambda: one.train_step(*batch, TRAIN_LR), 3)
+    del one
+    torch.cuda.empty_cache()
+    ranks = run_dist_ranks({"coordinator": f"127.0.0.1:{procutil.free_port()}", "world": cards,
+                            "space": 2, "size": SIZE, "batch": n_data, "backend": "nccl",
+                            "devices": [f"cuda:{i}" for i in range(cards)]})
+    space = check_dist_step(ranks[0][:2], want, before, f"dist_cards nccl {n_data}x2")
+    print("[dist_cards] train_space " + json.dumps({
+        "mesh": {"data": n_data, "space": 2}, "global_batch": n_data, "size": SIZE,
+        "ranks_bit_equal": True, **space,
+        "rank_step_ms": [round(r[3], 3) for r in ranks],
+        "one_card_step_ms": round(one_ms, 3),
+        "rank_peak_mib": [round(r[4] / 2 ** 20, 1) for r in ranks],
+        "one_card_peak_mib": round(one_peak / 2 ** 20, 1),
+        "rank_peak_share": [round(r[4] / one_peak, 4) for r in ranks], "card": card}),
+        flush=True)
+    _phase("dist_cards_space", t0)
+
+    for dp, sp in ((cards, 1), (n_data, 2)):
+        _dist_cards_cli(dp, sp, home, card)
+    return out
+
+
+def _dist_cards_cli(dp: int, sp: int, home, card) -> None:
+    """python -m fdt_torch.cli.train_pyramid --dp_devices dp [--sp_devices sp]
+    for 3 iterations of the flagship at 640², 2 images a data index, on
+    seeded images of data/mini/gen_anno_file_mini_train."""
+    import tempfile
+
+    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         anno = write_mini_train(pathlib.Path(tmp))
-        argv = ["--net", "repo", "--batch_size", str(2 * cards), "--iter", "3",
-                "--save_point", "3", "--dp_devices", str(cards), "--annoPath", str(anno),
+        flags = ["--dp_devices", str(dp)] + (["--sp_devices", str(sp)] if sp > 1 else [])
+        argv = ["--net", "repo", "--batch_size", str(2 * dp), "--iter", "3",
+                "--save_point", "3", *flags, "--annoPath", str(anno),
                 "--save_folder", tmp + "/", *(["--device", "cpu"] if home.type == "cpu" else [])]
         r = subprocess.run([sys.executable, "-m", "fdt_torch.cli.train_pyramid", *argv],
                            capture_output=True, text=True, timeout=DIST_TIMEOUT_S, cwd=REPO)
         if r.returncode:
-            raise AssertionError(f"dist_cards: train_pyramid --dp_devices {cards} exited "
+            raise AssertionError(f"dist_cards: train_pyramid {' '.join(flags)} exited "
                                  f"{r.returncode}:\n{r.stderr[-3000:]}")
         line = [ln for ln in r.stdout.splitlines() if ln.startswith("[train] ")][-1]
         saved = sorted(p.name for p in pathlib.Path(tmp).iterdir() if p.name.startswith("repo_"))
     print("[dist_cards] train_cli " + json.dumps({
-        "train": json.loads(line[len("[train] "):]), "saved": saved,
+        "flags": " ".join(flags), "train": json.loads(line[len("[train] "):]), "saved": saved,
         "wall_s": round(time.perf_counter() - t0, 3), "card": card}), flush=True)
-    _phase("dist_cards_cli", t0)
-    return out
+    _phase("dist_cards_cli", t0, flags=" ".join(flags))
 
 
 def write_mini_train(directory: pathlib.Path) -> pathlib.Path:

@@ -26,7 +26,14 @@ Data parallelism, one rank a device (fdt_torch.dist), with fdt's batches:
                      (global batch N × batch_size) on --device, or else on
                      cuda:<process_id mod cards>; --max_gt is required.
                      --dp_devices is then 0 or N.
---sp_devices above 1 (the data x space mesh) is the next slice.
+  --sp_devices s     fdt's 2-D data x space mesh, with --dp_devices d (0
+                     counts as 1): this process starts d·s local ranks,
+                     rank r at (data, space) = divmod(r, s), each keeping
+                     its data index's rows of each batch (B % d must be 0)
+                     and its band of each image's rows; the convolutions'
+                     halos are exchanged between the ranks of a data index
+                     (fdt_torch.dist.space).  Spatial shards must be
+                     process-local: not with --num_processes.
 """
 from __future__ import annotations
 
@@ -36,10 +43,6 @@ import os
 import sys
 
 from fdt_torch.cli._common import add_device_flag
-
-_SP_REFUSED = ("--sp_devices: the data x space mesh (image height sharded, convolution "
-               "halos exchanged) is the next slice of the port, ROADMAP Queue 1 item 5")
-
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -76,7 +79,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="data-parallel ranks started here, one a device (0 = one "
                          "device); each batch's rows split over them")
     ap.add_argument("--sp_devices", default=1, type=int,
-                    help="spatial partitioning: refused above 1 (the next slice)")
+                    help="spatial-partition mesh size: shards the image height over this "
+                         "many ranks a data index (the data x space mesh; local ranks only)")
     ap.add_argument("--num_processes", default=1, type=int,
                     help="multi-process data parallelism: start this CLI once a process "
                          "with its --process_id; global batch num_processes x batch_size")
@@ -99,8 +103,9 @@ def build_parser() -> argparse.ArgumentParser:
 def _refuse(args) -> None:
     """fdt's rules for the distribution flags, and the port's one-rank-a-device
     layout."""
-    if args.sp_devices > 1:
-        raise SystemExit(_SP_REFUSED)
+    if args.sp_devices > 1 and args.num_processes > 1:
+        raise SystemExit("--sp_devices requires single-process runs "
+                         "(spatial shards must be process-local)")
     if args.num_processes > 1:
         if args.dp_devices not in (0, args.num_processes):
             raise SystemExit(f"--dp_devices {args.dp_devices} with --num_processes "
@@ -145,7 +150,7 @@ def main(argv=None) -> int:
         device = _process_device(args.device, args.process_id)
         return _rank(args, args.coordinator, args.num_processes, args.process_id, device,
                      "records")
-    if args.dp_devices > 1:
+    if args.dp_devices > 1 or args.sp_devices > 1:
         return _start_local_ranks(args, argv)
     return _train(args, args.device)
 
@@ -160,22 +165,29 @@ def _process_device(device, index: int):
     return torch.device("cuda", index % torch.cuda.device_count())
 
 
+def _local_ranks(args) -> int:
+    """The ranks --dp_devices d [--sp_devices s] starts: d·s (0 counts as 1)."""
+    return max(args.dp_devices, 1) * max(args.sp_devices, 1)
+
+
 def _start_local_ranks(args, argv) -> int:
-    """--dp_devices n: n ranks of this CLI (dp_rank_main), each on its
-    device, over a fresh local port; their output is this process's.
-    Returns when all have finished; a failure ends them all."""
+    """--dp_devices d [--sp_devices s]: d·s ranks of this CLI (dp_rank_main),
+    each on its device, over a fresh local port; their output is this
+    process's.  Returns when all have finished; a failure ends them all."""
     import torch
 
     from fdt_torch.dist import make_mesh, procutil
-    n = args.dp_devices
+    n = _local_ranks(args)
+    flags = f"--dp_devices {args.dp_devices}" + (
+        f" --sp_devices {args.sp_devices}" if args.sp_devices > 1 else "")
     if args.device not in (None, "cpu", "cuda"):
-        raise SystemExit(f"--dp_devices {n} takes cards cuda:0..{n - 1} or, with "
+        raise SystemExit(f"{flags} takes cards cuda:0..{n - 1} or, with "
                          f"--device cpu, the CPU; not --device {args.device}")
     if args.device != "cpu":
         try:
             make_mesh(n)
         except ValueError as e:
-            raise SystemExit(f"--dp_devices {n}: {e}") from None
+            raise SystemExit(f"{flags}: {e}") from None
     argv = sys.argv[1:] if argv is None else list(argv)
     coordinator = f"127.0.0.1:{procutil.free_port()}"
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -187,25 +199,33 @@ def _start_local_ranks(args, argv) -> int:
         procutil.python_workers([["-c", prog, str(r), coordinator, *argv] for r in range(n)],
                                 None, env=env, capture=False)
     except procutil.WorkerFailure as e:
-        raise SystemExit(f"--dp_devices {n}: rank {e.index} exited with code "
+        raise SystemExit(f"{flags}: rank {e.index} exited with code "
                          f"{e.returncode}; the others were stopped") from None
     return 0
 
 
 def dp_rank_main(argv) -> int:
-    """One rank of --dp_devices n: `rank coordinator *cli_args`."""
+    """One rank of --dp_devices d [--sp_devices s]: `rank coordinator
+    *cli_args`."""
     rank, coordinator, *rest = argv
     args = build_parser().parse_args(rest)
     device = "cpu" if args.device == "cpu" else f"cuda:{rank}"
-    return _rank(args, coordinator, args.dp_devices, int(rank), device, "rows")
+    return _rank(args, coordinator, _local_ranks(args), int(rank), device,
+                 "space" if args.sp_devices > 1 else "rows")
 
 
 def _rank(args, coordinator: str, world: int, rank: int, device, shard: str) -> int:
-    """Join the process group as `rank` of `world`, train, leave."""
-    from fdt_torch.dist import make_mesh, multihost
+    """Join the process group as `rank` of `world`, train, leave.  shard
+    "space": on the 2-D mesh of --dp_devices x --sp_devices."""
+    from fdt_torch.dist import make_mesh, make_mesh_2d, multihost
     multihost.initialize(coordinator, world, rank, device=device)
     try:
-        return _train(args, device, make_mesh(devices=[device]), shard)
+        if shard == "space":
+            mesh = make_mesh_2d(max(args.dp_devices, 1), args.sp_devices,
+                                devices=None if args.device != "cpu" else ["cpu"] * world)
+        else:
+            mesh = make_mesh(devices=[device])
+        return _train(args, device, mesh, shard)
     finally:
         multihost.shutdown()
 

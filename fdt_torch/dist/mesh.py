@@ -17,21 +17,25 @@ process drives, along the `data` axis:
 make_mesh takes cards only: fewer cards than asked raises, where fdt falls
 back to virtual CPU devices.  A CPU mesh is asked for by name,
 make_mesh(devices=[torch.device("cpu")] * n), as fdt's tests ask for
-virtual CPU devices.  The 2-D data × space mesh is the next slice
-(ROADMAP Queue 1 item 5): in PyTorch every convolution's halo exchange is
-written by hand.
+virtual CPU devices.
+
+The 2-D data × space mesh (make_mesh_2d, training only) is one rank a
+device too, n_data × n_space ranks; rank r sits at (data, space) =
+divmod(r, n_space), fdt's reshape(n_data, n_space).  A rank holds its data
+index's rows of each batch and, at every layer, one band of rows of each
+feature map (fdt's P("data", "space") images: the image HEIGHT over
+`space`); the halo exchanges XLA's partitioner inserts for fdt are
+fdt_torch.dist.space's.
 """
 from __future__ import annotations
 
 import copy
 from typing import Sequence
 
+import numpy as np
 import torch
 
-from fdt_torch.dist import multihost
-
-_DATA_SPACE = ("the data x space mesh (image height sharded, convolution halos "
-               "exchanged) is the next slice of the port: ROADMAP Queue 1 item 5")
+from fdt_torch.dist import multihost, space
 
 
 def canonical_device(device) -> torch.device:
@@ -50,6 +54,7 @@ class Mesh:
     process group once one exists (0 and 1 before)."""
 
     axis_name = "data"
+    axis_names = ("data",)
 
     def __init__(self, devices: Sequence):
         if not devices:
@@ -98,14 +103,64 @@ def make_mesh(n: int | None = None, devices: Sequence | None = None) -> Mesh:
     return Mesh(devices)
 
 
-def make_mesh_2d(n_data: int, n_space: int) -> Mesh:
-    """Refused: the 2-D data × space mesh is not ported yet."""
-    raise NotImplementedError(f"make_mesh_2d: {_DATA_SPACE}")
+class Mesh2D(Mesh):
+    """This rank's view of the 2-D data × space mesh: `devices` are every
+    rank's (rank order), `device` its own, `data_index` / `space_index` its
+    place, and multihost.space_group() / data_group() its two subgroups."""
+
+    axis_names = ("data", "space")
+
+    def __init__(self, n_data: int, n_space: int, rank: int, devices: Sequence):
+        if len(devices) != n_data * n_space:
+            raise ValueError(f"a {n_data} x {n_space} mesh takes {n_data * n_space} "
+                             f"devices, one a rank; {len(devices)} given")
+        super().__init__(devices)
+        self.n_data, self.n_space = n_data, n_space
+        self._rank = rank
+        self.data_index, self.space_index = divmod(rank, n_space)
+        self.device = self.devices[rank]
+
+    @property
+    def rank(self) -> int:
+        return self._rank
+
+    @property
+    def shape(self) -> dict:
+        return {"data": self.n_data, "space": self.n_space}
+
+    def __repr__(self) -> str:
+        return (f"Mesh2D({self.shape}, rank={self.rank} at (data {self.data_index}, "
+                f"space {self.space_index}), device={self.device})")
 
 
-def train_batch_specs(mesh: Mesh, n_targets: int = 3):
-    """Refused: the images' (data, space) layout belongs to the 2-D mesh."""
-    raise NotImplementedError(f"train_batch_specs: {_DATA_SPACE}")
+def make_mesh_2d(n_data: int, n_space: int, devices: Sequence | None = None) -> Mesh2D:
+    """This rank's view of the n_data × n_space mesh over the process group
+    (which must hold n_data × n_space ranks), with its space and data
+    subgroups made (multihost.make_mesh_groups; every rank calls this).
+    `devices`: one a rank; None → cuda:0..n-1, raising with fewer cards (no
+    fall-back to the CPU); a CPU mesh is [torch.device("cpu")] * n."""
+    n = n_data * n_space
+    if devices is None:
+        count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if count < n:
+            raise ValueError(f"a {n_data} x {n_space} mesh takes {n} CUDA cards; this "
+                             f"machine has {count}.  A CPU mesh is make_mesh_2d(n_data, "
+                             "n_space, devices=[torch.device('cpu')] * n)")
+        devices = [torch.device("cuda", i) for i in range(n)]
+    if multihost.group() is None or torch.distributed.get_world_size() != n:
+        raise ValueError(f"make_mesh_2d({n_data}, {n_space}) needs a process group of {n} "
+                         "ranks (multihost.initialize), one a device")
+    multihost.make_mesh_groups(n_data, n_space)
+    return Mesh2D(n_data, n_space, torch.distributed.get_rank(), devices)
+
+
+def train_batch_specs(mesh: Mesh, n_targets: int = 3) -> tuple:
+    """fdt's layouts of one (images, *targets) train batch, as tuples of
+    axis names: the images over ("data", "space") (rows, then the HEIGHT
+    of NHWC images) on the 2-D mesh, the targets over ("data",); every
+    leaf over ("data",) on the 1-D mesh."""
+    img = ("data", "space") if "space" in mesh.axis_names else ("data",)
+    return (img,) + (("data",),) * n_targets
 
 
 def batch_sharding(mesh: Mesh, batch: int) -> list[slice]:
@@ -141,9 +196,22 @@ def shard_batch(mesh: Mesh, tree) -> list:
     return shards
 
 
-# fdt places (images, *targets) by train_batch_specs; on a 1-D mesh every
-# leaf shards over `data`, which is shard_batch
-shard_train_batch = shard_batch
+def shard_train_batch(mesh: Mesh, batch) -> list | tuple:
+    """An (images, *targets) batch (batch on axis 0, images NHWC; tensors or
+    numpy) placed by train_batch_specs.  On the 2-D mesh: this rank's
+    tuple, its data index's rows of every leaf and, of the images, its band
+    of rows (space.band), on its device.  On the 1-D mesh: shard_batch."""
+    if not isinstance(mesh, Mesh2D):
+        return shard_batch(mesh, batch)
+    lo, hi = multihost.process_batch_bounds(len(batch[0]), mesh.data_index, mesh.n_data)
+    out = []
+    for x, spec in zip(batch, train_batch_specs(mesh, len(batch) - 1)):
+        x = torch.as_tensor(np.ascontiguousarray(x) if isinstance(x, np.ndarray) else x)[lo:hi]
+        if "space" in spec:
+            a, b = space.band(x.shape[1], mesh.n_space, mesh.space_index)
+            x = x[:, a:b]
+        out.append(x.to(mesh.device, non_blocking=True))
+    return tuple(out)
 
 
 def run_sharded(mesh: Mesh, fn, batch: torch.Tensor, home: torch.device):

@@ -15,6 +15,14 @@ the global batch):
   * the gradients are summed over the ranks after the backward, and the
     logged losses too (fdt_torch.train.loops.DeviceTrainer).
 
+On the 2-D data x space mesh (fdt_torch.dist.mesh.make_mesh_2d) rank r is
+at (data, space) = divmod(r, n_space), and two kinds of subgroup join the
+ranks: the space group (the ranks of one data index, which share its
+images band by band: fdt_torch.dist.space) and the data group (the ranks of
+one space index, which together hold each image once: the loss's counts
+and the logged metrics are summed over it).  BatchNorm's sums and the
+gradient stay over the world.
+
 Typical worker:
 
     from fdt_torch.dist import make_mesh, multihost
@@ -33,6 +41,9 @@ import torch.distributed as dist
 
 # seconds a collective (and the rendezvous) may wait for a peer
 TIMEOUT_S = 600.0
+
+# the 2-D mesh's subgroups ("space", "data") while one exists (make_mesh_groups)
+_MESH_GROUPS: dict = {}
 
 
 def initialize(coordinator_address: str, num_processes: int, process_id: int,
@@ -59,6 +70,7 @@ def initialize(coordinator_address: str, num_processes: int, process_id: int,
 
 def shutdown() -> None:
     """Leave the process group (initialize may then be called again)."""
+    _MESH_GROUPS.clear()
     if group() is not None:
         dist.destroy_process_group()
     initialize._done = False
@@ -69,6 +81,36 @@ def group():
     if dist.is_available() and dist.is_initialized():
         return dist.group.WORLD
     return None
+
+
+def make_mesh_groups(n_data: int, n_space: int) -> None:
+    """Make the subgroups of the n_data x n_space mesh over the process
+    group (every rank calls this, and so new_group, in the same order).
+    With n_space 1 there are none: the mesh is the 1-D data-parallel one."""
+    d, s = divmod(dist.get_rank(), n_space)
+    _MESH_GROUPS.clear()
+    if n_space > 1:
+        for i in range(n_data):
+            g = dist.new_group([i * n_space + j for j in range(n_space)])
+            if i == d:
+                _MESH_GROUPS["space"] = g
+        for j in range(n_space):
+            g = dist.new_group([i * n_space + j for i in range(n_data)])
+            if j == s:
+                _MESH_GROUPS["data"] = g
+
+
+def space_group():
+    """The space subgroup of the 2-D mesh (this rank's data index's ranks),
+    or None: no 2-D mesh, or one of space size 1."""
+    return _MESH_GROUPS.get("space")
+
+
+def data_group():
+    """The data subgroup of the 2-D mesh (this rank's space index's ranks),
+    or None, which collectives read as the world: on the 1-D mesh the data
+    axis is the world."""
+    return _MESH_GROUPS.get("data")
 
 
 def process_batch_bounds(global_batch: int, process_id: int | None = None,
@@ -88,6 +130,15 @@ def process_batch_bounds(global_batch: int, process_id: int | None = None,
 def is_main() -> bool:
     """Rank 0, or no process group."""
     return group() is None or dist.get_rank() == 0
+
+
+def is_data_main() -> bool:
+    """Data index 0 (each space index's first rank of its data group), or
+    no process group: the rank of its data group that carries a constant of
+    the summed loss.  is_main() without a 2-D mesh."""
+    if data_group() is None:
+        return is_main()
+    return dist.get_rank(group=data_group()) == 0
 
 
 def barrier() -> None:
@@ -112,33 +163,35 @@ def broadcast_module(module: torch.nn.Module, src: int = 0) -> None:
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """Σ over the ranks; its backward is the Σ of the gradients, since every
-    rank's output depends on every rank's input."""
+    """Σ over the ranks of a group; its backward is the Σ of the gradients,
+    since every rank's output depends on every rank's input."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         x = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(x)
+        dist.all_reduce(x, group=group)
         return x
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(grad)
-        return grad
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """Σ of `x` over the ranks, differentiable (needs a group)."""
-    return _AllReduceSum.apply(x)
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Σ of `x` over the ranks of `group` (None: the world), differentiable
+    (needs a process group)."""
+    return _AllReduceSum.apply(x, group)
 
 
 @torch.no_grad()
-def sum_over_ranks(x: torch.Tensor) -> torch.Tensor:
-    """Σ of `x` over the ranks in a new tensor, no gradient; `x` itself
-    without a group."""
-    if group() is None:
+def sum_over_ranks(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Σ of `x` over the ranks of `group` (None: the world) in a new tensor,
+    no gradient; `x` itself without a process group."""
+    if not (dist.is_available() and dist.is_initialized()):
         return x
     x = x.detach().clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(x)
+    dist.all_reduce(x, group=group)
     return x

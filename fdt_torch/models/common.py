@@ -11,7 +11,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fdt_torch.dist import multihost
+from fdt_torch.dist import multihost, space
 
 
 def conv(cin: int, cout: int, kernel: int, stride: int = 1, padding: int = 0,
@@ -118,8 +118,14 @@ class NestedSequential(nn.Sequential):
 
 
 def max_pool(x: torch.Tensor, kernel: int = 3, stride: int = 2,
-             padding: int = 1) -> torch.Tensor:
-    """MaxPool2d; torch pads with -inf, as fdt's max_pool does."""
+             padding: int = 1, owner: nn.Module | None = None) -> torch.Tensor:
+    """MaxPool2d; torch pads with -inf, as fdt's max_pool does.  While a
+    space group exists, the pool of `owner` (the model that calls it, which
+    keeps its input's global height) pools its rank's band."""
+    if owner is not None and multihost.space_group() is not None:
+        h = space.op_height(owner, "max_pool", x)
+        if h is not None:
+            return space.max_pool2d(x, h, kernel, stride, padding)
     return F.max_pool2d(x, kernel, stride, padding)
 
 
@@ -171,6 +177,10 @@ class ContextTexture(nn.Module):
     def forward(self, up, main):
         up = self.up_conv(up)
         main = self.main_conv(main)
+        if multihost.space_group() is not None:
+            h_up, h_main = space.op_height(self, "up", up), space.op_height(self, "main", main)
+            if h_up is not None:  # the band of the cropped map: main's band
+                return space.upsample_crop(up, h_up, h_main, main.shape[3]) + main
         h, w = up.shape[-2:]
         # half-pixel centres, as fdt's jax.image.resize(method="linear")
         res = F.interpolate(up, size=(2 * h, 2 * w), mode="bilinear",
@@ -206,6 +216,12 @@ def add_pyramid_heads(model: nn.Module, n_sources: int, channels: int) -> None:
     model.head_conf = nn.ModuleList([conv(channels, 2, 3, 1, 1) for _ in range(n_sources - 1)])
 
 
+def _head(conv: nn.Module, source: torch.Tensor) -> torch.Tensor:
+    """A head conv over a source map: on the space axis of a 2-D mesh, its
+    output over the whole map (space.whole_map), which the loss needs."""
+    return space.whole_map(conv, conv(source))
+
+
 def face_outputs(model: nn.Module, sources, heads: bool = False,
                  features: list | None = None) -> dict:
     """The face heads of `model` over its source maps (max-in-out applied),
@@ -216,22 +232,24 @@ def face_outputs(model: nn.Module, sources, heads: bool = False,
     (net2net distillation's taps, fdt's return_features) also "features",
     that list, and "sources", the source maps, both NCHW."""
     b = sources[0].shape[0]
-    locs, confs = [], []
+    locs, confs, shapes = [], [], []
     for i, s in enumerate(sources):
-        tmp_conf = model.face_conf[i](s).permute(0, 2, 3, 1)
+        conf = _head(model.face_conf[i], s)
+        shapes.append((conf.shape[3], conf.shape[2]))
+        tmp_conf = conf.permute(0, 2, 3, 1)
         confs.append(max_in_out_conf(tmp_conf, first_source=(i == 0)).reshape(b, -1, 2))
-        locs.append(model.face_loc[i](s).permute(0, 2, 3, 1).reshape(b, -1, 4))
+        locs.append(_head(model.face_loc[i], s).permute(0, 2, 3, 1).reshape(b, -1, 4))
     out = {
         "face_loc": torch.cat(locs, 1).float(),
         "face_conf": torch.cat(confs, 1).float(),
-        "source_shapes": tuple((s.shape[3], s.shape[2]) for s in sources),
+        "source_shapes": tuple(shapes),
     }
     if heads:
         out["head_loc"] = torch.cat([
-            model.head_loc[i](s).permute(0, 2, 3, 1).reshape(b, -1, 4)
+            _head(model.head_loc[i], s).permute(0, 2, 3, 1).reshape(b, -1, 4)
             for i, s in enumerate(sources[1:])], 1).float()
         out["head_conf"] = torch.cat([
-            model.head_conf[i](s).permute(0, 2, 3, 1).reshape(b, -1, 2)
+            _head(model.head_conf[i], s).permute(0, 2, 3, 1).reshape(b, -1, 2)
             for i, s in enumerate(sources[1:])], 1).float()
     if features is not None:
         out["features"] = list(features)

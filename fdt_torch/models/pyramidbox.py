@@ -103,7 +103,7 @@ class PyramidBox(nn.Module):
         return x
 
     def forward(self, x: torch.Tensor, heads: bool = False, features: bool = False) -> dict:
-        c1 = max_pool(F.relu(self.bn1(self.conv1(x))), 3, 2, 1)
+        c1 = max_pool(F.relu(self.bn1(self.conv1(x))), 3, 2, 1, owner=self)
         c2 = self._blocks(self.layer1, c1)
         c3 = self._blocks(self.layer2, c2)
         c4 = self._blocks(self.layer3, c3)

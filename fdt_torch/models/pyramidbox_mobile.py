@@ -144,7 +144,7 @@ class PyramidBoxMobileV1(nn.Module):
         add_pyramid_heads(self, 6, 512)
 
     def forward(self, x, heads: bool = False, features: bool = False) -> dict:
-        c1 = max_pool(F.relu(self.bn1(self.conv1_my(x))), 3, 2, 1)
+        c1 = max_pool(F.relu(self.bn1(self.conv1_my(x))), 3, 2, 1, owner=self)
         c2 = self.layer1_my(c1)
         c3 = self.layer2_my(c2)
         c4 = self.layer3_my(c3)

@@ -6,7 +6,9 @@ batches, step-suffixed checkpoints (fdt_torch.train.checkpoint) and the
 backbone-freeze window.  On one device, or data-parallel (fdt's `mesh=`):
 one rank a device in a torch.distributed process group, each rank's mesh
 holding its one device (fdt_torch.dist; started by
-`python -m fdt_torch.cli.train_pyramid --dp_devices n | --num_processes n`).
+`python -m fdt_torch.cli.train_pyramid --dp_devices n | --num_processes n`),
+or on the 2-D data × space mesh (`--dp_devices d --sp_devices s`: a rank
+its data index's rows and its band of each image's rows).
 """
 from __future__ import annotations
 
@@ -18,8 +20,8 @@ import numpy as np
 import torch
 
 from fdt_torch.data.widerface import WiderFaceDataset
-from fdt_torch.dist import multihost
-from fdt_torch.dist.mesh import canonical_device
+from fdt_torch.dist import multihost, space
+from fdt_torch.dist.mesh import Mesh2D, canonical_device
 from fdt_torch.train.checkpoint import save_checkpoint
 from fdt_torch.train.loops import LossHistory, PyramidTrainer, pad_targets
 
@@ -118,9 +120,15 @@ def prefetch_batches(dataset, batch_size: int, depth: int = 3, pin: bool = False
 
 
 def check_training_mesh(mesh, trainer) -> None:
-    """A training mesh holds the one device its rank drives, the trainer's.
-    fdt's single-process mesh over several devices has no counterpart: the
-    port trains one process a device."""
+    """A training mesh holds the one device its rank drives, the trainer's
+    (on the 2-D mesh, the rank's device of the mesh's one a rank).  fdt's
+    single-process mesh over several devices has no counterpart: the port
+    trains one process a device."""
+    if isinstance(mesh, Mesh2D):
+        if mesh.device != canonical_device(trainer.device):
+            raise ValueError(f"rank {mesh.rank}'s device {mesh.device} is not the "
+                             f"trainer's {trainer.device}")
+        return
     if mesh.size != 1:
         raise ValueError(
             f"a training mesh holds its rank's one device, not {mesh.size}: the port "
@@ -151,11 +159,15 @@ def run_pyramid_training(trainer: PyramidTrainer, train_anno: str, cfg: TrainCon
         required (the ranks' GT pads must agree);
       "rows" — fdt's one-process mesh, replayed by n ranks: every rank runs
         the same seeded pipeline and keeps its rows [r·B/n, (r+1)·B/n) of
-        each batch of B = cfg.batch_size rows, so the batches are fdt's.
+        each batch of B = cfg.batch_size rows, so the batches are fdt's;
+      "space" — fdt's 2-D data × space mesh (a Mesh2D): as "rows" over the
+        data axis (its data index's rows), and of the images the rank's band
+        of rows (space.band over the input size), fdt's P("data", "space").
     The validation batches are not sharded by records (every rank walks the
-    same ones; "rows" keeps a rank's rows).  Rank 0 writes the checkpoints
-    and the loss files; the others reset their history and wait for it."""
-    rows = None
+    same ones; "rows" and "space" keep a rank's part).  Rank 0 writes the
+    checkpoints and the loss files; the others reset their history and wait
+    for it."""
+    rows = band = None
     if mesh is not None:
         check_training_mesh(mesh, trainer)
     dataset = WiderFaceDataset(train_anno, size=trainer.input_size)
@@ -171,33 +183,48 @@ def run_pyramid_training(trainer: PyramidTrainer, train_anno: str, cfg: TrainCon
             dataset.rng = np.random.RandomState(1 + i)
         elif shard == "rows":
             rows = slice(*multihost.process_batch_bounds(cfg.batch_size, i, n))
+        elif shard == "space":
+            if not isinstance(mesh, Mesh2D):
+                raise ValueError("shard='space' takes the 2-D mesh (make_mesh_2d)")
+            rows = slice(*multihost.process_batch_bounds(cfg.batch_size, mesh.data_index,
+                                                         mesh.n_data))
+            band = slice(*space.band(trainer.input_size, mesh.n_space, mesh.space_index))
         else:
-            raise ValueError(f"shard must be 'records' or 'rows', got {shard!r}")
+            raise ValueError(f"shard must be 'records', 'rows' or 'space', got {shard!r}")
+    if isinstance(mesh, Mesh2D) and shard != "space":
+        raise ValueError(f"the 2-D mesh takes shard='space', not {shard!r}")
     stats = {} if stats is None else stats
     batches = prefetch_batches(dataset, cfg.batch_size, pin=trainer.device.type == "cuda",
                                stats=stats)
     try:
-        return _training_loop(trainer, batches, cfg, val_dataset, log, stats, rows)
+        return _training_loop(trainer, batches, cfg, val_dataset, log, stats, (rows, band))
     finally:
         batches.close()  # stop the prefetch worker
 
 
-def _training_loop(trainer, batches, cfg, val_dataset, log, stats, rows):
+def _training_loop(trainer, batches, cfg, val_dataset, log, stats, part):
     from fdt_torch.utils.watchdog import StallWatchdog
     with StallWatchdog(cfg.stall_timeout, name=cfg.name,
                        startup_limit_s=cfg.startup_timeout) as watchdog:
         return _training_loop_inner(trainer, batches, cfg, val_dataset, log, stats,
-                                    watchdog, rows)
+                                    watchdog, part)
 
 
-def _padded(images, targets, max_gt, rows):
+def _padded(images, targets, max_gt, part):
     """(images, gt_boxes, gt_labels, gt_valid) of a batch, the GT padded over
-    the whole batch and then cut to this rank's `rows` (all when None)."""
+    the whole batch and then cut to this rank's part = (rows, band): its
+    rows (all when None) and, of the NHWC images, its band of rows (all when
+    None)."""
+    rows, band = part
     batch = (images, *pad_targets(targets, max_gt))
-    return batch if rows is None else tuple(x[rows] for x in batch)
+    if rows is not None:
+        batch = tuple(x[rows] for x in batch)
+    if band is not None:
+        batch = (batch[0][:, band],) + batch[1:]
+    return batch
 
 
-def _training_loop_inner(trainer, batches, cfg, val_dataset, log, stats, watchdog, rows):
+def _training_loop_inner(trainer, batches, cfg, val_dataset, log, stats, watchdog, part):
     history = LossHistory(cfg.save_point)
     eval_losses: list[float] = []
     step_index = 0
@@ -214,7 +241,7 @@ def _training_loop_inner(trainer, batches, cfg, val_dataset, log, stats, watchdo
             lr = cfg.lr * (cfg.gamma ** step_index)
             log(f"adjusting lr to {lr}")
 
-        metrics = trainer.train_step(*_padded(images, targets, cfg.max_gt, rows), lr,
+        metrics = trainer.train_step(*_padded(images, targets, cfg.max_gt, part), lr,
                                      freeze=iteration < cfg.train_pretrain)
         history.append(metrics)
         stats["iterations"] += 1
@@ -232,7 +259,7 @@ def _training_loop_inner(trainer, batches, cfg, val_dataset, log, stats, watchdo
             loss_val, n = 0.0, 0
             for img_e, tgt_e in val_dataset.batches(cfg.batch_size):
                 n += 1
-                loss_val += float(trainer.eval_loss(*_padded(img_e, tgt_e, cfg.max_gt, rows)))
+                loss_val += float(trainer.eval_loss(*_padded(img_e, tgt_e, cfg.max_gt, part)))
                 watchdog.beat()
                 if n > cfg.eval_batches:
                     break

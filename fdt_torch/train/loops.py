@@ -24,6 +24,18 @@ gradients are summed over the ranks in one flat all-reduce (the frozen
 parameters left out on every rank alike), the logged losses too, and
 rank 0's parameters and statistics are broadcast before the first step.
 The ranks then take the same update and stay equal bit for bit.
+
+On the 2-D data x space mesh (fdt_torch.dist.make_mesh_2d, PyramidTrainer
+only) a rank's batch is its data index's rows with the images cut to its
+band of rows (fdt_torch.dist.shard_train_batch).  The trainer makes the
+model's convs banded (fdt_torch.dist.space.band_convs) and records every
+banded op's global input height in its shape pass at the global size; the
+forward then runs band by band with halo exchanges over the space group,
+and the head outputs are gathered whole, so every rank of a space group
+computes its data index's loss.  The loss's counts and the logged metrics
+are summed over the data group (each image once); BatchNorm's sums and the
+gradient over the world (bands are disjoint, and a rank's gradient is its
+band's part of its data index's loss).
 """
 from __future__ import annotations
 
@@ -36,7 +48,7 @@ import torch
 
 from fdt_torch.anchors import pyramid_face_priors, pyramid_head_priors
 from fdt_torch.config import PYRAMID_CONFIGS, PyramidConfig
-from fdt_torch.dist import multihost
+from fdt_torch.dist import multihost, space
 from fdt_torch.infer.pyramidbox import _check_precision, _resolve_device, tf32_for
 from fdt_torch.models.common import checkpoint, running_stats_frozen
 from fdt_torch.models.loader import flax_paths
@@ -108,13 +120,19 @@ def pad_targets(targets: Sequence[np.ndarray], max_gt: int | None = None):
 
 def source_shapes(model: torch.nn.Module, input_size: int, device) -> tuple:
     """(f_width, f_height) of every source map, from one eval-mode forward of
-    the model at input_size² (exact for try4/try5 too)."""
+    the model at input_size² (exact for try4/try5 too).  While a space group
+    exists the pass runs whole, with the head-supervision branch, and
+    records every banded op's global input height
+    (fdt_torch.dist.space.recording)."""
     was_training = model.training
     model.eval()
     try:
         with torch.no_grad():
             x = torch.zeros(1, 3, input_size, input_size, device=device)
-            return model(x)["source_shapes"]
+            if multihost.space_group() is None:
+                return model(x)["source_shapes"]
+            with space.recording():
+                return model(x, heads=True)["source_shapes"]
     finally:
         model.train(was_training)
 
@@ -132,10 +150,12 @@ class DeviceTrainer:
       device: None → "cuda" (raises if absent); "cpu" for the CPU.
     A subclass sets `self.optimizer`, and `data_parallel = True` when its
     step has fdt's data-parallel form (train_step calls _group() first and
-    _sum_gradients() after the backward).
+    _sum_gradients() after the backward), `space_parallel = True` when it
+    also runs on the 2-D data x space mesh.
     """
 
     data_parallel = False
+    space_parallel = False
 
     def __init__(self, model, precision: str = "default",
                  dtype: torch.dtype = torch.float32, device=None):
@@ -166,6 +186,9 @@ class DeviceTrainer:
         if multihost.group() is not None and not self.data_parallel:
             raise NotImplementedError(f"{type(self).__name__} has no data-parallel step "
                                       "(fdt's has none either)")
+        if multihost.space_group() is not None and not self.space_parallel:
+            raise NotImplementedError(f"{type(self).__name__} has no step on the data x "
+                                      "space mesh (fdt's trains PyramidBox alone on it)")
 
     @torch.no_grad()
     def _sum_gradients(self, skip=None) -> None:
@@ -184,11 +207,12 @@ class DeviceTrainer:
     @staticmethod
     def _metrics(names, *values) -> dict:
         """The step's metrics as 0-d tensors; under a process group each is
-        summed over the ranks (the parts of one global loss), so every rank
-        logs the global values."""
+        summed over the data group (the world on the 1-D mesh: the parts of
+        one global loss), so every rank logs the global values."""
         values = [v.detach() for v in values]
         if multihost.group() is not None:
-            values = list(multihost.sum_over_ranks(torch.stack(values)))
+            values = list(multihost.sum_over_ranks(torch.stack(values),
+                                                   group=multihost.data_group()))
         return dict(zip(names, values))
 
     def _put(self, x, dtype=None) -> torch.Tensor:
@@ -247,6 +271,7 @@ class PyramidTrainer(DeviceTrainer):
     """
 
     data_parallel = True
+    space_parallel = True
 
     def __init__(self, model, cfg: PyramidConfig | str = "repo", input_size: int = 640,
                  loss_cfg: MultiBoxLossConfig = MultiBoxLossConfig(),
@@ -262,6 +287,8 @@ class PyramidTrainer(DeviceTrainer):
         self.remat = remat
         self.optimizer = sgd_optimizer(self.model.parameters(), momentum, weight_decay)
         self.input_size = input_size
+        if multihost.space_group() is not None:
+            space.band_convs(self.model)
         shapes = source_shapes(self.model, input_size, self.device)
         self.priors_face = torch.from_numpy(
             pyramid_face_priors(self.cfg, shapes, input_size, input_size)).to(self.device)
@@ -290,7 +317,8 @@ class PyramidTrainer(DeviceTrainer):
                    freeze: bool = False) -> dict:
         """One SGD step; returns the metrics as 0-d tensors on the device
         (no host synchronisation).  Under a process group the batch is this
-        rank's rows of the global batch and the metrics are global."""
+        rank's rows of the global batch (on the 2-D mesh, with the images
+        cut to the rank's band) and the metrics are global."""
         group = self._group()
         self.model.train()
         with tf32_for(self.precision):
@@ -311,7 +339,8 @@ class PyramidTrainer(DeviceTrainer):
         self.model.train()
         with torch.no_grad(), running_stats_frozen(), tf32_for(self.precision):
             return multihost.sum_over_ranks(
-                self._losses(images, gt_boxes, gt_labels, gt_valid)[0])
+                self._losses(images, gt_boxes, gt_labels, gt_valid)[0],
+                group=multihost.data_group())
 
 
 def check_float32(out: dict, keys) -> None:

@@ -10,6 +10,9 @@ fdt/train/multibox_loss.py), fixed-shape and on the device.
     loss_c = 10 and N = 1; N == 0 gives N = batch size.  Under a
     torch.distributed process group N, the selection and the batch size are
     the global batch's, and each rank returns its part of the global loss.
+    On the 2-D data x space mesh they are summed over the data group: every
+    rank of a space group holds its data index's whole head outputs and
+    returns the same part, and the data group holds each image once.
 
 The loss math runs in float32; no gradient flows into the targets.
 """
@@ -77,11 +80,12 @@ def multibox_loss_from_targets(loc_data, conf_data, loc_t, conf_t, negpos_ratio:
         # global loss, and the parts sum to it)
         counts = multihost.sum_over_ranks(torch.stack([
             num_pos.sum().float(), sel.sum().float(),
-            torch.full((), float(b), device=num_pos.device)]))
+            torch.full((), float(b), device=num_pos.device)]), group=multihost.data_group())
         n, has_sel, b = counts[0], counts[1] > 0, counts[2]
         n = torch.where(has_sel, n, torch.ones_like(n))
         n = torch.where(n == 0, b, n)
     loss_c = torch.sum(ce * sel)
-    empty = 10.0 if multihost.is_main() else 0.0  # one rank carries the constant
+    # one rank of each data group carries the constant
+    empty = 10.0 if multihost.is_data_main() else 0.0
     loss_c = torch.where(has_sel, loss_c, torch.full_like(loss_c, empty))
     return loss_l / n, loss_c / n

@@ -119,12 +119,65 @@ def test_make_mesh_takes_cards_only():
     assert make_mesh(2, devices=[CPU] * 4).size == 2
 
 
-@pytest.mark.parametrize("refused", [lambda: make_mesh_2d(2, 2),
-                                     lambda: train_batch_specs(make_mesh(devices=[CPU]))],
-                         ids=["make_mesh_2d", "train_batch_specs"])
-def test_the_data_x_space_mesh_is_the_next_slice(refused):
-    with pytest.raises(NotImplementedError, match="data x space.*Queue 1 item 5"):
-        refused()
+MESH_2D_RANK = """
+import json, sys, torch
+from fdt_torch.dist import make_mesh_2d, multihost, train_batch_specs
+rank, port = int(sys.argv[1]), sys.argv[2]
+multihost.initialize(f"127.0.0.1:{port}", 4, rank, timeout_s=60)
+try:
+    mesh = make_mesh_2d(2, 2, devices=["cpu"] * 4)
+    space = torch.distributed.get_process_group_ranks(multihost.space_group())
+    data = torch.distributed.get_process_group_ranks(multihost.data_group())
+    print(json.dumps({"shape": mesh.shape, "axis_names": mesh.axis_names,
+                      "index": [mesh.data_index, mesh.space_index], "space": space,
+                      "data": data, "data_main": multihost.is_data_main(),
+                      "specs": train_batch_specs(mesh, 3)}))
+finally:
+    multihost.shutdown()
+"""
+
+
+@pytest.mark.parametrize("case", ["make_mesh_2d", "train_batch_specs"])
+def test_the_data_x_space_mesh_is_the_next_slice(case):
+    """The data x space mesh (fdt's tests/test_dist.py:46-50).  make_mesh_2d:
+    it raises without a process group of n_data x n_space ranks and with
+    fewer cards than ranks; on 4 gloo ranks, make_mesh_2d(2, 2) gives each
+    rank the shape, axis names, its (data, space) = divmod(rank, 2), its
+    space group (its data index's ranks) and data group (its space index's).
+    train_batch_specs: fdt's layouts on the 2-D and the 1-D mesh."""
+    import jax.sharding
+    from fdt.dist import make_mesh as fdt_mesh, make_mesh_2d as fdt_mesh_2d
+    from fdt.dist import train_batch_specs as fdt_specs
+    from fdt_torch.dist import Mesh2D
+    if case == "train_batch_specs":
+        assert train_batch_specs(Mesh2D(4, 2, 5, [CPU] * 8), 2) == (
+            ("data", "space"), ("data",), ("data",))
+        assert train_batch_specs(make_mesh(devices=[CPU]), 2) == (("data",),) * 3
+        for port_mesh, mesh in ((Mesh2D(4, 2, 0, [CPU] * 8), fdt_mesh_2d(4, 2)),
+                                (make_mesh(devices=[CPU]), fdt_mesh(8))):
+            want = fdt_specs(mesh, 3)
+            assert all(isinstance(p, jax.sharding.PartitionSpec) for p in want)
+            assert train_batch_specs(port_mesh, 3) == tuple(tuple(p) for p in want)
+        mesh = Mesh2D(4, 2, 5, [CPU] * 8)
+        assert (mesh.shape, mesh.axis_names, mesh.data_index, mesh.space_index) == (
+            {"data": 4, "space": 2}, ("data", "space"), 2, 1)
+        return
+    with pytest.raises(ValueError, match="needs a process group of 4 ranks"):
+        make_mesh_2d(2, 2, devices=[CPU] * 4)
+    with pytest.raises(ValueError, match="takes 4 CUDA cards; this machine has 0"):
+        make_mesh_2d(2, 2)
+    port = str(free_port())
+    results = python_workers([["-c", MESH_2D_RANK, str(r), port] for r in range(4)],
+                             JOB_TIMEOUT_S, env=child_env(1), cwd=str(REPO))
+    for r, (_, out, _) in enumerate(results):
+        info = json.loads(out.strip().splitlines()[-1])
+        d, s = divmod(r, 2)
+        assert info["shape"] == {"data": 2, "space": 2}
+        assert tuple(info["axis_names"]) == ("data", "space")
+        assert info["index"] == [d, s]
+        assert info["space"] == [2 * d, 2 * d + 1] and info["data"] == [s, 2 + s]
+        assert info["data_main"] == (d == 0)
+        assert info["specs"] == [["data", "space"], ["data"], ["data"], ["data"]]
 
 
 def test_batch_sharding_pad_and_shard():

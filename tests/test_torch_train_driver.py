@@ -156,12 +156,14 @@ def test_cli_resumes_from_its_checkpoint(tmp_path, capsys):
 
 @pytest.mark.parametrize("flag,message", [
     (["--dp_devices", "2", "--batch_size", "7"], "does not divide over --dp_devices 2"),
-    (["--sp_devices", "2"], "data x space mesh.*next slice.*Queue 1 item 5"),
+    (["--sp_devices", "2", "--num_processes", "2"],
+     r"^--sp_devices requires single-process runs \(spatial shards must be process-local\)$"),
     (["--num_processes", "2"], "requires --max_gt")], ids=["flag0", "flag1", "flag2"])
 def test_cli_refuses_what_this_slice_does_not_bring(flag, message):
-    """The data x space mesh is the next slice; --dp_devices and
-    --num_processes take fdt's rules (a batch that divides over the ranks,
-    --max_gt across processes; tests/test_torch_dist.py runs them)."""
+    """fdt's rules for the distribution flags: a batch that divides over the
+    data ranks, --max_gt across processes, and spatial shards only within
+    one process, with fdt's message (tests/test_torch_dist.py and
+    tests/test_torch_dist_space.py run what they allow)."""
     with pytest.raises(SystemExit, match=message):
         train_pyramid.main(flag)
 
