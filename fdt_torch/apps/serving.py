@@ -7,6 +7,11 @@ the "pyramidbox", "facebox" and "mtcnn" families).
                      up to `max_batch`, rides the same device dispatch),
                      resolving per-request futures and relaying per-batch
                      errors.  close() drains the queue and joins the worker.
+                     stats() is the operator's view (GET /healthz): requests,
+                     batches, mean and max batch size, queue_wait_ms_mean /
+                     queue_wait_ms_max (a request's wait from submit() to the
+                     start of the batch it rode) and worker_busy_share (the
+                     worker's seconds in batch_fn over its lifetime so far).
   DetectionService   resizes requests to the service frame size on the host,
                      runs the batch at its own size (eager PyTorch compiles
                      nothing per batch size, so fdt's power-of-two bucket
@@ -69,6 +74,12 @@ class MicroBatcher:
         self.batches = 0
         self._size_sum = 0
         self._size_max = 0
+        self._waited = 0       # requests that rode a batch
+        self._wait_sum = 0.0   # their seconds from submit to their batch's start
+        self._wait_max = 0.0
+        self._busy_s = 0.0     # the worker's seconds in batch_fn
+        self._t_start = time.monotonic()
+        self._t_end = None     # when the worker returned
         self._worker = threading.Thread(target=self._run, daemon=True,
                                         name="fdt-torch-microbatcher")
         self._worker.start()
@@ -80,7 +91,7 @@ class MicroBatcher:
             if self._closed:
                 raise RuntimeError("MicroBatcher is closed")
             self.requests += 1
-            self._q.put((fut, item))
+            self._q.put((fut, item, time.monotonic()))
         return fut
 
     def call(self, fn: Callable[[], object]) -> Future:
@@ -129,12 +140,22 @@ class MicroBatcher:
         self.close()
 
     def stats(self) -> dict:
-        n = self.batches
+        n, waited = self.batches, self._waited
+        lifetime = (self._t_end or time.monotonic()) - self._t_start
         return {"requests": self.requests, "batches": n,
                 "max_batch_size": self._size_max,
-                "mean_batch_size": (self._size_sum / n) if n else 0.0}
+                "mean_batch_size": (self._size_sum / n) if n else 0.0,
+                "queue_wait_ms_mean": 1e3 * self._wait_sum / waited if waited else 0.0,
+                "queue_wait_ms_max": 1e3 * self._wait_max,
+                "worker_busy_share": self._busy_s / lifetime if lifetime > 0 else 0.0}
 
     def _run(self) -> None:
+        try:
+            self._serve()
+        finally:
+            self._t_end = time.monotonic()
+
+    def _serve(self) -> None:
         while True:
             first = self._q.get()
             if first is _SENTINEL:
@@ -162,12 +183,17 @@ class MicroBatcher:
                 batch.append(item)
             # claim every future first: a client-cancelled future then cannot
             # make set_result raise mid-loop and poison the rest of the batch
-            live = [(f, it) for f, it in batch
+            live = [(f, it, t) for f, it, t in batch
                     if f.set_running_or_notify_cancel()]
-            futures = [f for f, _ in live]
+            futures = [f for f, _, _ in live]
             if futures:
+                t_batch = time.monotonic()
+                for *_, t in live:
+                    self._wait_sum += t_batch - t
+                    self._wait_max = max(self._wait_max, t_batch - t)
+                self._waited += len(live)
                 try:
-                    results = self._batch_fn([it for _, it in live])
+                    results = self._batch_fn([it for _, it, _ in live])
                     if len(results) != len(futures):
                         raise RuntimeError(
                             f"batch_fn returned {len(results)} results for "
@@ -178,6 +204,8 @@ class MicroBatcher:
                     for fut in futures:
                         if not fut.done():
                             fut.set_exception(e)
+                finally:
+                    self._busy_s += time.monotonic() - t_batch
             self.batches += 1
             self._size_sum += len(futures)
             self._size_max = max(self._size_max, len(futures))

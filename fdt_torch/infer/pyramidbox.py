@@ -22,6 +22,14 @@ repeating its last row to a mesh multiple, split, run shard by shard without
 waiting for a card, gathered on the mesh's first device and cut back.
 Images are independent, so the answers are the unsharded detector's, up to
 the convolution algorithms a card picks for another batch size.
+
+Spans (fdt_torch.utils.trace, recorded only while recording is on): `detect`
+around a whole call, its count the batch size (detect_tensor, or
+detect_device when called directly); under it `detect.upload` (the pageable
+copy to the device, mean, permute, cast, channels-last), `model.forward`
+(the host's enqueue of the network), `detect.head` (priors, softmax,
+ssd_detect with K1's launch; nothing in it waits for the card) and
+`detect.readback` (the wait for the card, the copy back, `.numpy()`).
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ from fdt_torch.config import DetectConfig, PIXEL_MEAN_BGR, PYRAMID_CONFIGS, Pyra
 from fdt_torch.dist.mesh import replicated, run_sharded
 from fdt_torch.infer.detect import ssd_detect
 from fdt_torch.ops.quant import check_mode, int8_convs
+from fdt_torch.utils import trace
 
 
 def detections_to_rows(det: np.ndarray, threshold: float, scale,
@@ -209,28 +218,34 @@ class PyramidBoxDetector:
             self.detect_cfg,
             conf_thresh=self.detect_cfg.conf_thresh if conf_thresh is None else conf_thresh,
             nms_thresh=self.detect_cfg.nms_thresh if nms_thresh is None else nms_thresh)
-        if self.mesh is None:
-            return self._detect_on(self.device, images_u8, dcfg)
-        return run_sharded(self.mesh, lambda d, x: self._detect_on(d, x, dcfg), images_u8,
-                           self.device)
+        with trace.span_once("detect", len(images_u8)):
+            if self.mesh is None:
+                return self._detect_on(self.device, images_u8, dcfg)
+            return run_sharded(self.mesh, lambda d, x: self._detect_on(d, x, dcfg),
+                               images_u8, self.device)
 
     def _detect_on(self, device, images_u8: torch.Tensor, dcfg) -> torch.Tensor:
         _, h, w, _ = images_u8.shape
-        x = images_u8.to(device, non_blocking=True).float() - self._means[device]
-        x = x.permute(0, 3, 1, 2).to(self.dtype).contiguous(
-            memory_format=self.memory_format)
-        with tf32_for(self.precision):
+        with trace.span("detect.upload"):
+            x = images_u8.to(device, non_blocking=True).float() - self._means[device]
+            x = x.permute(0, 3, 1, 2).to(self.dtype).contiguous(
+                memory_format=self.memory_format)
+        with tf32_for(self.precision), trace.span("model.forward"):
             out = self._models[device](x)
-        priors = self._priors_for(w, h, out["source_shapes"], device)
-        conf = F.softmax(out["face_conf"], dim=-1)
-        return ssd_detect(out["face_loc"], conf, priors, dcfg, budget=self.budget)
+        with trace.span("detect.head"):
+            priors = self._priors_for(w, h, out["source_shapes"], device)
+            conf = F.softmax(out["face_conf"], dim=-1)
+            return ssd_detect(out["face_loc"], conf, priors, dcfg, budget=self.budget)
 
     def detect_tensor(self, images_u8, conf_thresh: float | None = None,
                       nms_thresh: float | None = None) -> np.ndarray:
         """[B,H,W,3] uint8 BGR (numpy or tensor) → [B, 2, top_k, 5] numpy."""
-        if not torch.is_tensor(images_u8):
-            images_u8 = torch.from_numpy(np.ascontiguousarray(images_u8))
-        return self.detect_device(images_u8, conf_thresh, nms_thresh).cpu().numpy()
+        with trace.span("detect", len(images_u8)):
+            if not torch.is_tensor(images_u8):
+                images_u8 = torch.from_numpy(np.ascontiguousarray(images_u8))
+            det = self.detect_device(images_u8, conf_thresh, nms_thresh)
+            with trace.span("detect.readback"):
+                return det.cpu().numpy()
 
     def detect_face(self, image_bgr: np.ndarray, threshold: float,
                     shrink: float = 1.0, nms_thresh: float = 0.35) -> np.ndarray:

@@ -18,6 +18,7 @@ import math
 import torch
 
 from fdt_torch.geometry.nms import nms_keep_mask
+from fdt_torch.utils.trace import Counter
 
 _MODES = {"union": 0, "minimum": 1}
 _MAX_WORDS = 65535  # K1: words of 64 boxes; keeps the mask launch's grid.y in range
@@ -27,18 +28,8 @@ _MAX_WORDS = 65535  # K1: words of 64 boxes; keeps the mask launch's grid.y in r
 _GREEDY_MAX_BOXES = 8192
 
 
-class _Launches:
-    """Launch counter: a kernel wrapper adds one per launch."""
-
-    def __init__(self):
-        self.count = 0
-
-    def reset(self) -> None:
-        self.count = 0
-
-
-launches = _Launches()         # K1
-greedy_launches = _Launches()  # K2
+launches = Counter()         # K1
+greedy_launches = Counter()  # K2
 
 
 def _check(boxes: torch.Tensor, valid: torch.Tensor, mode: str) -> None:

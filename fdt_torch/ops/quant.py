@@ -42,7 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fdt_torch.ops.nms import _Launches
+from fdt_torch.utils.trace import Counter
 
 # Quantize a conv only when its per-output reduction (kh*kw*cin/groups) is at
 # least this large; smaller convs keep the float path (fdt/ops/quant.py:41)
@@ -58,9 +58,9 @@ WGMMA_TILE_N = (8, 64, 128, 256)
 # product with its float32 reciprocal (the kernel's kInv127)
 _INV127 = torch.tensor(1 / 127, dtype=torch.float32)
 
-launches = _Launches()           # K4, the wgmma variant
-mma_sync_launches = _Launches()  # K4, the mma_sync variant
-quantize_launches = _Launches()  # K5
+launches = Counter()           # K4, the wgmma variant
+mma_sync_launches = Counter()  # K4, the mma_sync variant
+quantize_launches = Counter()  # K5
 # K5's grid-barrier state and partial maxima, one buffer a (device,
 # stream): zero when made, then kept by the kernel
 _GRID_STATE: dict = {}

@@ -19,11 +19,11 @@ import ctypes
 import torch
 
 from fdt_torch.config import TrackerConfig
-from fdt_torch.ops.nms import _Launches
 from fdt_torch.geometry.track import _Slots, associate_chunk_plain
+from fdt_torch.utils.trace import Counter
 
-launches = _Launches()         # K3, the shared-memory variant
-global_launches = _Launches()  # K3, the device-memory variant
+launches = Counter()         # K3, the shared-memory variant
+global_launches = Counter()  # K3, the device-memory variant
 
 _INT_MAX = 2**31 - 1
 

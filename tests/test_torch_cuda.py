@@ -10,6 +10,7 @@ Where there is no card every test skips.
 import hashlib
 import pathlib
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -794,3 +795,39 @@ def test_dp_inference_on_every_card_launches_there(card):
     assert sorted(record) == sorted(str(d) for d in mesh.distinct)
     assert all(err == 0 for _, err in record.values())
     chip_smoke.check_dp_detections(got, det.detect_tensor(images, conf_thresh=0.05))
+
+
+def test_profiled_detect_spans_hold_the_threads_launch_calls(try3_on_card):
+    """Traced as the benchmark traces (portbench's Trace: the card's
+    activities only), detect_tensor calls record their five spans.  Placed
+    on the trace by portbench's join (the stop's synchronise) they lie
+    within 20 µs of the exact placement (the profiler's own start on
+    CLOCK_REALTIME): at least 99% of the launch calls start inside one of
+    them and none inside `detect.readback`, which issues a copy alone."""
+    from fdt_torch.utils import trace
+    from portbench.metrics import _spans
+    from portbench.metrics._trace import Trace
+
+    names = ["detect", "detect.upload", "model.forward", "detect.head", "detect.readback"]
+    frames = np.random.RandomState(3).randint(0, 256, (4, 256, 256, 3), dtype=np.uint8)
+    try3_on_card.detect_tensor(frames)
+    Trace.warm()
+    trace.drain()
+    tr = Trace()
+    tr.start()
+    prof = tr._prof
+    for _ in range(3):
+        try3_on_card.detect_tensor(frames)
+    tr.stop()
+    rec = trace.drain()
+    assert [s.name for s in rec.spans] == names * 3
+    assert {s.thread for s in rec.spans} == {threading.get_native_id()}
+    placed = _spans._place(tr, rec)
+    assert placed is not None and len(placed.spans) == len(rec.spans) and placed.images == 12
+    start_ns = prof.profiler.kineto_results.trace_start_ns()
+    off_us = [(rec.to_real_ns(s.start_ns) - start_ns) / 1e3 - a
+              for s, (a, _, _) in zip(rec.spans, placed.spans)]
+    assert max(map(abs, off_us)) < 20, off_us
+    inside, total = _spans.launches_in(placed, set(names))
+    assert total > 30 and inside >= 0.99 * total, (inside, total)
+    assert _spans.launches_in(placed, {"detect.readback"})[0] == 0
