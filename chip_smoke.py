@@ -3193,10 +3193,28 @@ def _rows_agree(got: np.ndarray, want: np.ndarray, threshold: float,
     return True
 
 
+def graph_counts() -> tuple[int, int, int]:
+    """The PyramidBox detect path's graph cache counters
+    (fdt_torch.infer.graphs): eager calls, captures, replays."""
+    from fdt_torch.infer import graphs
+
+    return graphs.graph_eager.count, graphs.graph_captures.count, graphs.graph_replays.count
+
+
+def k1_through_graphs(before: tuple) -> tuple[int, int]:
+    """(K1 launches, calls) of the detect_tensor calls through the graph
+    cache since graph_counts() read `before`: a call run eagerly launches K1
+    once, a capture twice (its warm-up on a side stream and the capture), a
+    replay never (K1 runs inside the graph)."""
+    eager, captures, replays = (a - b for a, b in zip(graph_counts(), before))
+    return eager + 2 * captures, eager + captures + replays
+
+
 def _serve(name, svc, images, want, threshold, t0, launches_per_batch=None) -> None:
     """Drive `svc` with `images` from 4 client threads; every answer must
     agree with its direct call `want[i]`, and K1 must launch once a batch
-    (or launches_per_batch() times in all, read after the run)."""
+    that runs eagerly (k1_through_graphs for the batches through the graph
+    cache), or launches_per_batch() times in all, read after the run."""
     from fdt_torch.ops import nms as nms_op
 
     results, latencies, errors = {}, [], []
@@ -3217,6 +3235,7 @@ def _serve(name, svc, images, want, threshold, t0, launches_per_batch=None) -> N
 
     n = len(images)
     threads = [threading.Thread(target=client, args=(range(k, n, 4),)) for k in range(4)]
+    before = graph_counts()
     nms_op.launches.reset()
     for t in threads:
         t.start()
@@ -3235,7 +3254,9 @@ def _serve(name, svc, images, want, threshold, t0, launches_per_batch=None) -> N
            if not _rows_agree(results[i], want[i], threshold, 1e-4, 0.05)]
     if bad:
         raise AssertionError(f"{name}: answers differ from direct calls: {bad}")
-    expected = stats["batches"] if launches_per_batch is None else launches_per_batch()
+    graph_k1, graph_calls = k1_through_graphs(before)
+    expected = (stats["batches"] - graph_calls + graph_k1 if launches_per_batch is None
+                else launches_per_batch())
     if launches != expected:
         raise AssertionError(f"{name}: {stats['batches']} batches, {launches} K1 launches "
                              f"(want {expected})")
@@ -3460,7 +3481,7 @@ def photo_like(h: int, w: int, seed: int) -> np.ndarray:
 def phase_http(det):
     """The bf16 flagship behind make_http_server: a fresh service's warmup(),
     then a burst of PNG bodies from 4 threads, twice, every answer against
-    a direct detect_tensor call, K1 once a batch; /healthz, 413, 400, 404,
+    a direct detect_tensor call, K1 as k1_through_graphs counts; /healthz, 413, 400, 404,
     ?threshold= and a JPEG body; then the port's decoder and Pillow timed on
     the same PNG and JPEG bytes."""
     import http.client
@@ -3545,10 +3566,12 @@ def phase_http(det):
             for v in spans.values():
                 v.clear()
             batches = svc.stats()["batches"]
+            before = graph_counts()
             nms_op.launches.reset()
             results, latencies, wall = _http_burst(f"{url}/detect", bodies)
             launches, batches = nms_op.launches.count, svc.stats()["batches"] - batches
-            if launches != batches or len(recorder.calls) != batches:
+            if ((launches, batches) != k1_through_graphs(before)
+                    or len(recorder.calls) != batches):
                 raise AssertionError(f"http: {batches} batches, {launches} K1 launches")
             # the direct reference: detect_tensor again on each batch as served
             want, sizes = {}, []
@@ -3598,10 +3621,12 @@ def phase_http(det):
                                                                          quality=90)
         jpeg = buf.getvalue()
         recorder.calls.clear()
+        before = graph_counts()
         nms_op.launches.reset()
         status, payload = _post(f"{url}/detect", jpeg)
         jpeg_launches = nms_op.launches.count
-        if status != 200 or len(recorder.calls) != 1 or jpeg_launches != 1:
+        if (status != 200 or len(recorder.calls) != 1
+                or (jpeg_launches, 1) != k1_through_graphs(before)):
             raise AssertionError(f"http: a JPEG body gave {status}, "
                                  f"{len(recorder.calls)} batches, {jpeg_launches} K1 launches")
         (served, _), = recorder.calls
@@ -3711,6 +3736,7 @@ def phase_eval(det32, facebox_det, device):
         ref = reference_dump(want, anno)
         if not ((ref[0, :-1] == 1).any() and (ref[0, :-1] == 0).any()):
             raise AssertionError("eval: the reference dump lacks a TF flag")
+        before = graph_counts()
         nms_op.launches.reset()
         t = time.perf_counter()
         dump = eval_pyramidbox(det32, anno, EVAL_THRESHOLD, str(tmp / "data_of_repo.npy"),
@@ -3718,7 +3744,7 @@ def phase_eval(det32, facebox_det, device):
         native_s = time.perf_counter() - t
         native_launches = nms_op.launches.count
         launches += native_launches
-        if native_launches != n:
+        if (native_launches, n) != k1_through_graphs(before):
             raise AssertionError(f"eval: {native_launches} K1 launches for {n} images")
         if not np.array_equal(dump, ref) or not np.array_equal(np.load(tmp / "data_of_repo.npy"), ref):
             raise AssertionError("eval: the eval_pyramidbox dump differs from direct calls")
@@ -3729,19 +3755,21 @@ def phase_eval(det32, facebox_det, device):
         if not np.array_equal(merged, dump):
             raise AssertionError("eval: 2 merged shards differ from the unsharded dump")
         # the per-shape LRU past a bound lowered on the instance: one image of
-        # each size, then the first size (evicted) again
+        # each size, then a size the LRU dropped again (on the card its graph
+        # replays; a replay keeps its size in the LRU only while it is there)
         det32._priors_max = EVAL_CACHE_BOUND
         try:
             sizes = len(EVAL_SIZES)
             for i in range(sizes):
                 det32.detect_face(images[i], EVAL_THRESHOLD, nms_thresh=EVAL_NMS)
             held = len(det32._priors)
-            h, w = images[0].shape[:2]
-            evicted = (w, h) not in det32._priors
-            again = det32.detect_face(images[0], EVAL_THRESHOLD, nms_thresh=EVAL_NMS)
+            evicted = [i for i in range(sizes) if images[i].shape[1::-1] not in det32._priors]
+            again = [det32.detect_face(images[i], EVAL_THRESHOLD, nms_thresh=EVAL_NMS)
+                     for i in evicted[:1]]
         finally:
             det32._priors_max = 64
-        if held > EVAL_CACHE_BOUND or not evicted or not np.array_equal(again, want[0]):
+        if held > EVAL_CACHE_BOUND or not evicted or not np.array_equal(again[0],
+                                                                          want[evicted[0]]):
             raise AssertionError(f"eval: LRU held {held} > {EVAL_CACHE_BOUND}, evicted "
                                  f"{evicted}, or an evicted size's answer changed")
         _phase("eval_native", t0, images=n, sizes=len(EVAL_SIZES),
@@ -3751,6 +3779,7 @@ def phase_eval(det32, facebox_det, device):
 
         t0 = time.perf_counter()
         rec = _Recorder(det32)
+        before = graph_counts()
         nms_op.launches.reset()
         batched_s = []
         for _ in range(2):  # the first pass meets each chunk's shape for the first time
@@ -3761,7 +3790,7 @@ def phase_eval(det32, facebox_det, device):
             batched_s.append(time.perf_counter() - t)
         batched_launches = nms_op.launches.count
         launches += batched_launches
-        if batched_launches != 2 * len(rec.calls):
+        if (batched_launches, 2 * len(rec.calls)) != k1_through_graphs(before):
             raise AssertionError(f"eval_batched: {batched_launches} K1 launches for "
                                  f"2 × {len(rec.calls)} chunks")
         # eval_pyramidbox_batched's order: buckets as first met, images in anno order
@@ -4002,11 +4031,14 @@ def phase_video(device):
             for leg, run in legs.items():
                 run(frames[:b])  # first use of the batch's shapes
                 _counts_zero()
+                before = graph_counts()
                 got = run(frames)  # the main path
                 torch.cuda.synchronize()
                 k1, k3 = nms_op.launches.count, track_op.launches.count
                 k3g = track_op.global_launches.count
-                if (k1 != len(chunks) or k3 + k3g != (0 if leg == "host" else len(chunks))
+                graph_k1, graph_calls = k1_through_graphs(before)
+                if (k1 != len(chunks) - graph_calls + graph_k1
+                        or k3 + k3g != (0 if leg == "host" else len(chunks))
                         or nms_op.greedy_launches.count):
                     raise AssertionError(f"video {leg} batch {b}: {k1} K1 calls, {k3} + {k3g} "
                                          f"K3 launches for {len(chunks)} batches")
@@ -4108,10 +4140,12 @@ def phase_video_demo(det, floor, facebox_det, device, frames) -> int:
         cascade._start_tier.clear()  # the demo and the direct calls climb alike
         setattr(detector, method, recorded)
         try:
+            before = graph_counts()
             nms_op.launches.reset()
             fps = demo(detector, frames=iter(frames[:DEMO_FRAMES]), **kw)  # the main path
             torch.cuda.synchronize()
             k1 = nms_op.launches.count
+            replays = graph_counts()[2] - before[2]  # K1 ran inside the graph
         finally:
             delattr(detector, method)
         cascade._start_tier.clear()
@@ -4120,7 +4154,7 @@ def phase_video_demo(det, floor, facebox_det, device, frames) -> int:
             got, want = ((out, want) if isinstance(out, tuple) else ((out,), (want,)))
             if not all(np.array_equal(g, w) for g, w in zip(got, want)):
                 raise AssertionError(f"video_demo {name}: an answer differs from a direct call")
-        if len(calls) != DEMO_FRAMES or (name != "mtcnn_host" and not k1):
+        if len(calls) != DEMO_FRAMES or (name != "mtcnn_host" and not (k1 or replays)):
             raise AssertionError(f"video_demo {name}: {len(calls)} frames, {k1} K1 launches")
         launches += k1
         fields[f"{name}_fps"] = f"{fps:.2f}"
@@ -4388,10 +4422,12 @@ def phase_train(device) -> int:
                                                      "variables.npz")), device=device)
         frame = photo_like(480, 640, 40)[None]
         det.detect_tensor(frame, conf_thresh=0.01, nms_thresh=0.35)  # first use of the shape
+        before = graph_counts()
         nms_op.launches.reset()
         out = det.detect_tensor(frame, conf_thresh=0.01, nms_thresh=0.35)  # the main path
         k1 = nms_op.launches.count
-    if k1 != 1 or not np.isfinite(out).all() or out.shape != (1, 2, 750, 5):
+    if ((k1, 1) != k1_through_graphs(before) or not np.isfinite(out).all()
+            or out.shape != (1, 2, 750, 5)):
         raise AssertionError(f"train cli: the trained detector gave {out.shape}, {k1} K1 calls")
     _phase("train_cli", t0, iterations=first_run["iterations"] + resumed["iterations"],
            batch=2, augment_images_per_s=resumed["augment_images_per_s"],
@@ -4927,12 +4963,13 @@ def phase_tooling(device) -> int:
         aps = {}
         for where in (dev, "cpu"):
             buf = io.StringIO()
+            before = graph_counts()
             with contextlib.redirect_stdout(buf):
                 _, k1 = _k1_during(lambda w=where: select_checkpoint.main(argv + ["--device", w]))
             aps[where] = json.loads(buf.getvalue().splitlines()[-1])
             if where == dev:
-                select_k1 = k1
-        if select_k1 != len(steps) * SELECT_VAL_IMAGES:
+                select_k1, (graph_k1, graph_calls) = k1, k1_through_graphs(before)
+        if select_k1 != len(steps) * SELECT_VAL_IMAGES - graph_calls + graph_k1:
             raise AssertionError(f"select_checkpoint: {select_k1} K1 launches")
         diff = {k: abs(v - aps["cpu"]["aps"][k]) for k, v in aps[dev]["aps"].items()}
         if (aps[dev]["aps"].keys() != aps["cpu"]["aps"].keys()

@@ -23,12 +23,23 @@ waiting for a card, gathered on the mesh's first device and cut back.
 Images are independent, so the answers are the unsharded detector's, up to
 the convolution algorithms a card picks for another batch size.
 
+On a CUDA device without a mesh or int8, detect_tensor replays a CUDA graph
+of the device chain (fdt_torch.infer.graphs): everything from the uint8
+batch on the card to the [B, 2, top_k, 5] output (mean, permute, cast,
+channels-last, the forward, softmax, ssd_detect with K1), captured on a
+batch shape's second call at its thresholds, replayed from its third; a
+first call runs eagerly (`_detect_on`).  The CPU, a mesh, int8 and
+detect_device called directly (whose callers keep the device tensor past
+the next call) always run eagerly.
+
 Spans (fdt_torch.utils.trace, recorded only while recording is on): `detect`
 around a whole call, its count the batch size (detect_tensor, or
 detect_device when called directly); under it `detect.upload` (the pageable
-copy to the device, mean, permute, cast, channels-last), `model.forward`
-(the host's enqueue of the network), `detect.head` (priors, softmax,
-ssd_detect with K1's launch; nothing in it waits for the card) and
+copy to the device, mean, permute, cast, channels-last; on a replay the
+copy into the graph's input alone), `model.forward` (the host's enqueue of
+the network; on a replay the graph's launch, the whole chain's enqueue),
+`detect.head` (priors, softmax, ssd_detect with K1's launch; nothing in it
+waits for the card; not opened on a replay, whose graph holds that work) and
 `detect.readback` (the wait for the card, the copy back, `.numpy()`).
 """
 from __future__ import annotations
@@ -45,6 +56,7 @@ import torch.nn.functional as F
 from fdt_torch.anchors import pyramid_face_priors
 from fdt_torch.config import DetectConfig, PIXEL_MEAN_BGR, PYRAMID_CONFIGS, PyramidConfig
 from fdt_torch.dist.mesh import replicated, run_sharded
+from fdt_torch.infer import graphs
 from fdt_torch.infer.detect import ssd_detect
 from fdt_torch.ops.quant import check_mode, int8_convs
 from fdt_torch.utils import trace
@@ -181,6 +193,7 @@ class PyramidBoxDetector:
         # recently used first
         self._priors: OrderedDict = OrderedDict()
         self._priors_max = 64
+        self._graphs = graphs.GraphCache(self.device)
 
     @property
     def source_shapes(self) -> dict[tuple[int, int], tuple]:
@@ -195,57 +208,96 @@ class PyramidBoxDetector:
                                  f"config {self.cfg.name!r} has priors for "
                                  f"{len(self.cfg.face_priors.strides)}")
             entry = self._priors[key] = (tuple(source_shapes), {})
-        else:
-            self._priors.move_to_end(key)
-        while len(self._priors) > self._priors_max:  # also after the bound is lowered
-            self._priors.popitem(last=False)
+        self._use_priors(key)
         on = entry[1]
         if device not in on:
             on[device] = torch.from_numpy(
                 pyramid_face_priors(self.cfg, entry[0], width, height)).to(device)
         return on[device]
 
+    def _use_priors(self, key: tuple[int, int]) -> None:
+        """`key` (width, height) becomes the priors LRU's most recent size
+        (a graph replay's size too, whose graph holds its own priors), and the
+        LRU is cut to its bound."""
+        if key in self._priors:
+            self._priors.move_to_end(key)
+        while len(self._priors) > self._priors_max:  # also after the bound is lowered
+            self._priors.popitem(last=False)
+
+    def _dcfg(self, images_u8: torch.Tensor, conf_thresh, nms_thresh) -> DetectConfig:
+        """The call's detect settings, once its batch is checked."""
+        if images_u8.dim() != 4 or images_u8.shape[-1] != 3 or images_u8.dtype != torch.uint8:
+            raise ValueError(f"expected [B,H,W,3] uint8, got {images_u8.dtype} "
+                             f"{tuple(images_u8.shape)}")
+        return dataclasses.replace(
+            self.detect_cfg,
+            conf_thresh=self.detect_cfg.conf_thresh if conf_thresh is None else conf_thresh,
+            nms_thresh=self.detect_cfg.nms_thresh if nms_thresh is None else nms_thresh)
+
     @torch.inference_mode()
     def detect_device(self, images_u8: torch.Tensor, conf_thresh: float | None = None,
                       nms_thresh: float | None = None) -> torch.Tensor:
         """[B,H,W,3] uint8 BGR tensor → [B, 2, top_k, 5] float32 tensor on
         the detector's device (no host synchronisation; with a mesh, shard
-        by shard, gathered there)."""
-        if images_u8.dim() != 4 or images_u8.shape[-1] != 3 or images_u8.dtype != torch.uint8:
-            raise ValueError(f"expected [B,H,W,3] uint8, got {images_u8.dtype} "
-                             f"{tuple(images_u8.shape)}")
-        dcfg = dataclasses.replace(
-            self.detect_cfg,
-            conf_thresh=self.detect_cfg.conf_thresh if conf_thresh is None else conf_thresh,
-            nms_thresh=self.detect_cfg.nms_thresh if nms_thresh is None else nms_thresh)
+        by shard, gathered there).  Always eager: the tensor is the
+        caller's to keep."""
+        dcfg = self._dcfg(images_u8, conf_thresh, nms_thresh)
         with trace.span_once("detect", len(images_u8)):
             if self.mesh is None:
                 return self._detect_on(self.device, images_u8, dcfg)
             return run_sharded(self.mesh, lambda d, x: self._detect_on(d, x, dcfg),
                                images_u8, self.device)
 
+    def _model_input(self, images_u8: torch.Tensor, device) -> torch.Tensor:
+        """A uint8 BGR batch on `device` → the model's input there."""
+        x = images_u8.float() - self._means[device]
+        return x.permute(0, 3, 1, 2).to(self.dtype).contiguous(memory_format=self.memory_format)
+
+    def _head(self, out: dict, priors: torch.Tensor, dcfg) -> torch.Tensor:
+        conf = F.softmax(out["face_conf"], dim=-1)
+        return ssd_detect(out["face_loc"], conf, priors, dcfg, budget=self.budget)
+
     def _detect_on(self, device, images_u8: torch.Tensor, dcfg) -> torch.Tensor:
         _, h, w, _ = images_u8.shape
         with trace.span("detect.upload"):
-            x = images_u8.to(device, non_blocking=True).float() - self._means[device]
-            x = x.permute(0, 3, 1, 2).to(self.dtype).contiguous(
-                memory_format=self.memory_format)
+            x = self._model_input(images_u8.to(device, non_blocking=True), device)
         with tf32_for(self.precision), trace.span("model.forward"):
             out = self._models[device](x)
         with trace.span("detect.head"):
-            priors = self._priors_for(w, h, out["source_shapes"], device)
-            conf = F.softmax(out["face_conf"], dim=-1)
-            return ssd_detect(out["face_loc"], conf, priors, dcfg, budget=self.budget)
+            return self._head(out, self._priors_for(w, h, out["source_shapes"], device), dcfg)
+
+    def _graph_chain(self, static_in: torch.Tensor, dcfg) -> tuple:
+        """The device chain a graph holds, from the uint8 batch on the card
+        to the [B, 2, top_k, 5] output, and the tensors it reads besides the
+        model and its input."""
+        _, h, w, _ = static_in.shape
+        x = self._model_input(static_in, self.device)
+        with tf32_for(self.precision):
+            out = self.model(x)
+        priors = self._priors_for(w, h, out["source_shapes"], self.device)
+        return self._head(out, priors, dcfg), (priors, self._means[self.device])
 
     def detect_tensor(self, images_u8, conf_thresh: float | None = None,
                       nms_thresh: float | None = None) -> np.ndarray:
-        """[B,H,W,3] uint8 BGR (numpy or tensor) → [B, 2, top_k, 5] numpy."""
+        """[B,H,W,3] uint8 BGR (numpy or tensor) → [B, 2, top_k, 5] numpy;
+        through a CUDA graph of the batch's shape where one applies (the
+        module's docstring)."""
         with trace.span("detect", len(images_u8)):
             if not torch.is_tensor(images_u8):
                 images_u8 = torch.from_numpy(np.ascontiguousarray(images_u8))
+            if self.device.type in graphs.DEVICE_TYPES and self.mesh is None and self.quant is None:
+                return self._detect_graphed(images_u8, conf_thresh, nms_thresh)
             det = self.detect_device(images_u8, conf_thresh, nms_thresh)
             with trace.span("detect.readback"):
                 return det.cpu().numpy()
+
+    @torch.inference_mode()
+    def _detect_graphed(self, images_u8: torch.Tensor, conf_thresh, nms_thresh) -> np.ndarray:
+        dcfg = self._dcfg(images_u8, conf_thresh, nms_thresh)
+        self._use_priors((images_u8.shape[2], images_u8.shape[1]))
+        return self._graphs.detect((tuple(images_u8.shape), dcfg, self.budget), images_u8,
+                                   self.model, lambda x: self._graph_chain(x, dcfg),
+                                   lambda x: self._detect_on(self.device, x, dcfg))
 
     def detect_face(self, image_bgr: np.ndarray, threshold: float,
                     shrink: float = 1.0, nms_thresh: float = 0.35) -> np.ndarray:

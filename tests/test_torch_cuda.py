@@ -347,7 +347,8 @@ def try3_on_card(card):
 def test_http_server_on_card_answers_as_direct_calls(try3_on_card):
     """PNG bodies POSTed from 4 threads to make_http_server around a card
     service: each answer against a direct detect_tensor call on its frame
-    (float32, another batch size: 1e-4 in scores, 0.05 px), K1 once a batch."""
+    (float32, another batch size: 1e-4 in scores, 0.05 px), K1 once a batch
+    run eagerly, twice a capture, never a replay (chip_smoke.k1_through_graphs)."""
     import threading
 
     from fdt_torch.apps.serving import DetectionService, make_http_server
@@ -368,11 +369,14 @@ def test_http_server_on_card_answers_as_direct_calls(try3_on_card):
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     try:
+        before = chip_smoke.graph_counts()
         nms_op.launches.reset()
         got, _, _ = chip_smoke._http_burst(
             f"http://127.0.0.1:{server.server_address[1]}/detect",
             [chip_smoke.encode_png(f) for f in frames])
-        assert nms_op.launches.count == svc.stats()["batches"] > 0
+        assert svc.stats()["batches"] > 0
+        assert (nms_op.launches.count, svc.stats()["batches"]) == chip_smoke.k1_through_graphs(
+            before)
     finally:
         server.shutdown()
         server.server_close()
@@ -383,7 +387,8 @@ def test_http_server_on_card_answers_as_direct_calls(try3_on_card):
 
 def test_eval_pyramidbox_on_card_equals_direct_detect_face(try3_on_card, tmp_path):
     """eval_pyramidbox on PNG files of three sizes: the dump bit-equal to one
-    built from direct detect_face calls, one K1 launch an image."""
+    built from direct detect_face calls, one K1 launch an image run eagerly
+    (two a capture, none a replay: chip_smoke.k1_through_graphs)."""
     from fdt_torch.eval.runner import eval_pyramidbox
 
     det = try3_on_card
@@ -393,9 +398,10 @@ def test_eval_pyramidbox_on_card_equals_direct_detect_face(try3_on_card, tmp_pat
     anno = chip_smoke.write_eval_set(
         tmp_path, images, [chip_smoke.gt_boxes(r, *im.shape[:2], rng)
                            for r, im in zip(want, images)])
+    before = chip_smoke.graph_counts()
     nms_op.launches.reset()
     dump = eval_pyramidbox(det, anno, 0.0, progress=False)
-    assert nms_op.launches.count == len(images)
+    assert (nms_op.launches.count, len(images)) == chip_smoke.k1_through_graphs(before)
     np.testing.assert_array_equal(dump, chip_smoke.reference_dump(want, anno))
     assert dump[0, :-1].sum() > 0
 
@@ -424,7 +430,8 @@ def try3_tracker_on_card(card):
 def test_video_legs_on_card_equal_the_unfused_path(try3_tracker_on_card):
     """track_video (host and device trackers) and track_video_fused on the
     card at batch 3: tracks equal to chip_smoke.unfused_tracks on chunks of 3
-    (same_tracks), one K1 call a batch, one K3 launch a batch where the
+    (same_tracks), one K1 call a batch (through the detector's graphs as
+    chip_smoke.k1_through_graphs counts), one K3 launch a batch where the
     association runs on the card."""
     from fdt_torch.ops import track as track_op
     from fdt_torch.track import track_video, track_video_fused
@@ -442,9 +449,11 @@ def test_video_legs_on_card_equal_the_unfused_path(try3_tracker_on_card):
         nms_op.launches.reset()
         track_op.launches.reset()
         track_op.global_launches.reset()
+        before = chip_smoke.graph_counts()
         got = run()
         assert chip_smoke.same_tracks(got, want), leg
-        assert nms_op.launches.count == 2
+        graph_k1, graph_calls = chip_smoke.k1_through_graphs(before)
+        assert nms_op.launches.count == 2 - graph_calls + graph_k1
         assert track_op.launches.count + track_op.global_launches.count == (
             0 if leg == "host" else 2)
 
@@ -797,37 +806,185 @@ def test_dp_inference_on_every_card_launches_there(card):
     chip_smoke.check_dp_detections(got, det.detect_tensor(images, conf_thresh=0.05))
 
 
-def test_profiled_detect_spans_hold_the_threads_launch_calls(try3_on_card):
-    """Traced as the benchmark traces (portbench's Trace: the card's
-    activities only), detect_tensor calls record their five spans.  Placed
-    on the trace by portbench's join (the stop's synchronise) they lie
-    within 20 µs of the exact placement (the profiler's own start on
-    CLOCK_REALTIME): at least 99% of the launch calls start inside one of
-    them and none inside `detect.readback`, which issues a copy alone."""
+def _profiled(det, frames, calls):
+    """`calls` detect_tensor calls of det (each given its keyword arguments)
+    traced as the benchmark traces (portbench's Trace: the card's
+    activities only): (the profiler, its Trace, the spans recorded, those
+    spans placed by portbench's join)."""
     from fdt_torch.utils import trace
     from portbench.metrics import _spans
     from portbench.metrics._trace import Trace
 
-    names = ["detect", "detect.upload", "model.forward", "detect.head", "detect.readback"]
-    frames = np.random.RandomState(3).randint(0, 256, (4, 256, 256, 3), dtype=np.uint8)
-    try3_on_card.detect_tensor(frames)
     Trace.warm()
     trace.drain()
     tr = Trace()
     tr.start()
     prof = tr._prof
-    for _ in range(3):
-        try3_on_card.detect_tensor(frames)
+    for kw in calls:
+        det.detect_tensor(frames, **kw)
     tr.stop()
     rec = trace.drain()
-    assert [s.name for s in rec.spans] == names * 3
-    assert {s.thread for s in rec.spans} == {threading.get_native_id()}
-    placed = _spans._place(tr, rec)
-    assert placed is not None and len(placed.spans) == len(rec.spans) and placed.images == 12
+    return prof, tr, rec, _spans._place(tr, rec)
+
+
+def _check_join(prof, rec, placed, images):
+    """Placed spans within 20 µs of the exact placement (the profiler's own
+    start on CLOCK_REALTIME)."""
+    assert placed is not None and len(placed.spans) == len(rec.spans)
+    assert placed.images == images
     start_ns = prof.profiler.kineto_results.trace_start_ns()
     off_us = [(rec.to_real_ns(s.start_ns) - start_ns) / 1e3 - a
               for s, (a, _, _) in zip(rec.spans, placed.spans)]
     assert max(map(abs, off_us)) < 20, off_us
+
+
+def test_profiled_detect_spans_hold_the_threads_launch_calls(try3_on_card):
+    """detect_tensor's replays (the third call of a shape on): each records
+    `detect` with `detect.upload`, `model.forward` and `detect.readback`
+    under it (no `detect.head`: the graph holds its work), placed by
+    portbench's join within 20 µs of the exact placement.  The stretch
+    holds no kernel launch call at all; each graph launch starts inside
+    `model.forward`, none inside `detect.readback`; the profiler records the
+    graph's kernels, K1's among them."""
+    import re
+
+    from portbench.metrics import _spans
+
+    names = ["detect", "detect.upload", "model.forward", "detect.readback"]
+    frames = np.random.RandomState(3).randint(0, 256, (4, 256, 256, 3), dtype=np.uint8)
+    for _ in range(2):  # eager, then the capture
+        try3_on_card.detect_tensor(frames)
+    prof, tr, rec, placed = _profiled(try3_on_card, frames, [{}] * 3)
+    assert [s.name for s in rec.spans] == names * 3
+    assert {s.thread for s in rec.spans} == {threading.get_native_id()}
+    _check_join(prof, rec, placed, 12)
+    assert _spans.launches_in(placed, set(names)) == (0, 0)
+    graph_starts = [s for name, s, _ in tr.host if name.startswith("cudaGraphLaunch")]
+    assert len(graph_starts) == 3
+    forward = [(a, b) for a, b, n in placed.spans if n == "model.forward"]
+    readback = [(a, b) for a, b, n in placed.spans if n == "detect.readback"]
+    assert all(any(a <= t <= b for a, b in forward) for t in graph_starts)
+    assert not any(a <= t <= b for a, b in readback for t in graph_starts)
+    assert sum(bool(re.search(r"nms_\w+_kernel", n)) for n, _, _ in tr.ops) >= 3 * 3
+
+
+def test_profiled_eager_detect_spans_hold_the_threads_launch_calls(try3_on_card):
+    """Eager detect_tensor calls (each at thresholds not seen before)
+    record their five spans; at least 99% of the launch calls start inside
+    one of them and none inside `detect.readback`, which issues a copy
+    alone."""
+    from fdt_torch.infer import graphs
+    from portbench.metrics import _spans
+
+    names = ["detect", "detect.upload", "model.forward", "detect.head", "detect.readback"]
+    frames = np.random.RandomState(3).randint(0, 256, (4, 256, 256, 3), dtype=np.uint8)
+    try3_on_card.detect_tensor(frames, conf_thresh=0.01)
+    eager = graphs.graph_eager.count
+    prof, tr, rec, placed = _profiled(try3_on_card, frames,
+                                      [{"conf_thresh": 0.02 + 0.01 * i} for i in range(3)])
+    assert graphs.graph_eager.count == eager + 3
+    assert [s.name for s in rec.spans] == names * 3
+    assert {s.thread for s in rec.spans} == {threading.get_native_id()}
+    _check_join(prof, rec, placed, 12)
     inside, total = _spans.launches_in(placed, set(names))
     assert total > 30 and inside >= 0.99 * total, (inside, total)
     assert _spans.launches_in(placed, {"detect.readback"})[0] == 0
+
+
+# the benchmark's two detectors (portbench/configs/, portbench/traffic/):
+# npz, batch, threshold, NMS threshold
+BENCH_DETECTORS = {"repo": ("net_weight/repo_mini.npz", 8, 0.0, 0.35),
+                   "try1": ("net_weight/try1_distilled_mini.npz", 32, 0.3, 0.3)}
+
+
+def _bench_detector(variant, card):
+    """The benchmark's detector of `variant`: bf16, channels-last, budget
+    5000, top_k 750."""
+    import dataclasses
+
+    from fdt_torch.config import PYRAMID_CONFIGS
+    from fdt_torch.models import load_pyramidbox_detector
+
+    detect_cfg = dataclasses.replace(PYRAMID_CONFIGS[variant].detect, top_k=750)
+    return load_pyramidbox_detector(variant, str(REPO / BENCH_DETECTORS[variant][0]),
+                                    detect_cfg=detect_cfg, budget=5000,
+                                    dtype=torch.bfloat16, device=card)
+
+
+def _eager(det, images, conf, nms_thresh):
+    """The eager path's answer (`_detect_on`, the graph's counterpart)."""
+    x = torch.from_numpy(images)
+    with torch.inference_mode():
+        return det._detect_on(det.device, x, det._dcfg(x, conf, nms_thresh)).cpu().numpy()
+
+
+def _graph_counts():
+    from fdt_torch.infer import graphs
+
+    return graphs.graph_eager.count, graphs.graph_captures.count, graphs.graph_replays.count
+
+
+@pytest.mark.parametrize("variant", ["repo", "try1"])
+def test_graph_replays_bit_equal_to_eager_on_the_bench_detectors(card, variant):
+    """The bf16 flagship at 8 × 640² and try1 at 32 × 640², on the
+    benchmark's weights, frames (portbench.generate, a large seed) and
+    thresholds: detect_tensor's first call of the shape runs eagerly, its
+    second captures, the next four replay, and every answer equals the
+    eager path's bit for bit.  K1's launch counter moves at the eager call
+    and at the capture (its warm-up on the side stream and the capture),
+    never at a replay: K1 runs inside the graph."""
+    from portbench import generate
+
+    _, batch, conf, nms_thresh = BENCH_DETECTORS[variant]
+    det = _bench_detector(variant, card)
+    frames = generate.frames(2**31 + 23, 2 * batch, 640, 640).reshape(2, batch, 640, 640, 3)
+    wants = [_eager(det, f, conf, nms_thresh) for f in frames]
+    c0, k1 = _graph_counts(), nms_op.launches.count
+    for i in range(6):
+        got = det.detect_tensor(frames[i % 2], conf_thresh=conf, nms_thresh=nms_thresh)
+        assert np.array_equal(got, wants[i % 2]), i
+        if i == 1:
+            assert nms_op.launches.count == k1 + 3
+    assert nms_op.launches.count == k1 + 3
+    assert tuple(a - b for a, b in zip(_graph_counts(), c0)) == (1, 1, 4)
+    assert (wants[0][:, 1, :, 0] > 0).sum() > 0  # rows to compare
+
+
+def test_graphs_sharing_a_pool_stay_bit_equal_through_alternation_and_eviction(
+        card, monkeypatch):
+    """try1 (bf16) at two shapes and two threshold pairs, four graphs on
+    the detector's one memory pool, called in turn: every answer equals the
+    eager path's bit for bit.  Then, the bound cut to 2, a fifth key's
+    capture evicts three; the survivors, the evicted keys (eager, captured
+    again into the same pool) and the new one still answer bit-equal."""
+    from fdt_torch.infer import graphs
+
+    det = _bench_detector("try1", card)
+    rng = np.random.RandomState(5)
+    batches = {(4, 320, 320): None, (2, 256, 384): None, (1, 320, 320): None}
+    for shape in batches:
+        batches[shape] = rng.randint(0, 256, (*shape, 3), dtype=np.uint8)
+    pairs = [(0.3, 0.3), (0.1, 0.5)]
+    keys = [(shape, pair) for shape in list(batches)[:2] for pair in pairs]
+    wants = {(shape, pair): _eager(det, batches[shape], *pair)
+             for shape in batches for pair in pairs}
+
+    def call(key):
+        shape, (conf, nms_thresh) = key
+        got = det.detect_tensor(batches[shape], conf_thresh=conf, nms_thresh=nms_thresh)
+        assert np.array_equal(got, wants[key]), key
+
+    c0 = _graph_counts()
+    for _ in range(3):
+        for key in keys:
+            call(key)
+    assert tuple(a - b for a, b in zip(_graph_counts(), c0)) == (4, 4, 4)
+    assert len(det._graphs.entries) == 4
+    monkeypatch.setattr(graphs, "MAX_ENTRIES", 2)
+    fifth = ((1, 320, 320), pairs[0])
+    for _ in range(2):
+        call(fifth)
+    assert len(det._graphs.entries) == 2
+    for _ in range(3):
+        for key in keys + [fifth]:
+            call(key)
