@@ -12,7 +12,7 @@ import functools
 
 import numpy as np
 
-from fdt_torch.config import PriorConfig, PyramidConfig
+from fdt_torch.config import PriorConfig, PyramidConfig, RetinaConfig
 
 
 @functools.lru_cache(maxsize=None)
@@ -84,3 +84,24 @@ def pyramid_head_priors(cfg: PyramidConfig, source_shapes, width: int, height: i
     parts = [prior_grid(cfg.head_priors, idx - 1, fw, fh, width, height)
              for idx, (fw, fh) in enumerate(source_shapes) if idx > 0]
     return np.concatenate(parts, axis=0)
+
+
+def retina_priors(cfg: RetinaConfig, source_shapes, width: int, height: int) -> np.ndarray:
+    """RetinaFace's priors (biubug6's layers/functions/prior_box.py): for each
+    source map in turn its cells row-major, each cell's `min_sizes` in order,
+    [cx, cy, s/W, s/H] with centre ((j + 0.5)·step/W, (i + 0.5)·step/H),
+    unclipped; float64 arithmetic cast to float32.
+
+    source_shapes: [(f_width, f_height)] per source, from the model's
+    forward (ceil(W/step) × ceil(H/step) for RetinaFace's ResNet-50)."""
+    parts = []
+    for (fw, fh), step, sizes in zip(source_shapes, cfg.steps, cfg.min_sizes):
+        cx = (np.arange(fw, dtype=np.float64) + 0.5) * step / width
+        cy = (np.arange(fh, dtype=np.float64) + 0.5) * step / height
+        p = np.empty((fh, fw, len(sizes), 4), np.float64)
+        p[..., 0] = cx[None, :, None]
+        p[..., 1] = cy[:, None, None]
+        p[..., 2] = np.asarray(sizes, np.float64) / width
+        p[..., 3] = np.asarray(sizes, np.float64) / height
+        parts.append(p.reshape(-1, 4))
+    return np.concatenate(parts).astype(np.float32)

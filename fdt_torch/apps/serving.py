@@ -1,5 +1,6 @@
 """Micro-batching inference serving (counterpart of fdt/apps/serving.py:41-301,
-the "pyramidbox", "facebox" and "mtcnn" families).
+the "pyramidbox", "facebox" and "mtcnn" families; and "retinaface", which
+fdt does not have).
 
   MicroBatcher       background daemon worker coalescing concurrent requests
                      into batches (the first request opens a window of
@@ -40,8 +41,9 @@ import torch
 import torch.nn.functional as F
 
 from fdt_torch.infer.pyramidbox import detections_to_rows
+from fdt_torch.infer.retinaface import landmark_rows_of
 
-FAMILIES = ("pyramidbox", "facebox", "mtcnn")
+FAMILIES = ("pyramidbox", "facebox", "mtcnn", "retinaface")
 _SENTINEL = object()
 
 
@@ -240,12 +242,14 @@ class DetectionService:
     family: "pyramidbox" (a PyramidBoxDetector of any variant, frames of
     `frame_size`), "facebox" (a FaceBoxDetector; frames are its config's
     fixed square input, whatever `frame_size` says) or "mtcnn" (an
-    MTCNNDeviceCascade, frames of `frame_size`).  Requests are BGR uint8
+    MTCNNDeviceCascade, frames of `frame_size`) or "retinaface" (a
+    RetinaFaceDetector, frames of `frame_size`).  Requests are BGR uint8
     images of ANY resolution; results are [N, 5] float32 rows
     [x1, y1, x2, y2, score] in the REQUEST's pixel coordinates (empty [0, 5]
     when nothing is detected: serving drops the eval protocol's
-    [[0, 0, 0, 0, 0.4]] sentinel).  For mtcnn the rows are [N, 15]: box and
-    score, then the 10 landmark coordinates (x, y of each of 5 points).
+    [[0, 0, 0, 0, 0.4]] sentinel).  For mtcnn and retinaface the rows are
+    [N, 15]: box and score, then the 10 landmark coordinates (x, y of each
+    of 5 points).
     """
 
     def __init__(self, family: str, detector, frame_size=(640, 480),
@@ -326,6 +330,8 @@ class DetectionService:
                     for i, (c, size) in enumerate(zip(counts, sizes))]
         det = self.detector.detect_tensor(frames, conf_thresh=self.threshold,
                                           nms_thresh=self.nms_thresh)
+        if self.family == "retinaface":  # normalized rows, scaled to each request's size
+            return [landmark_rows_of(d, self.threshold, w, h) for d, (w, h) in zip(det, sizes)]
         return [self._pyramidbox_rows(d, *size) for d, size in zip(det, sizes)]
 
     def _pyramidbox_rows(self, det: np.ndarray, w: int, h: int) -> np.ndarray:

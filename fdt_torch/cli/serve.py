@@ -7,11 +7,14 @@ card (counterpart of scripts/serve.py, with the same flags).
   curl -s localhost:8000/healthz
 
 Weights are variables npz files in fdt's format or reference .pth/.pt
-state dicts.  `--quant int8` serves the pyramid or FaceBoxes family with int8
-convolutions (kernels K5 and K4 on the card) and is refused for the mtcnn
-cascade, as in fdt.  `--dp_devices n` shards each micro-batch over n
-devices (the pyramid and FaceBoxes families, as in fdt): the first n cards,
-or n slots on the CPU with --device cpu (fdt_torch.dist.make_mesh).
+state dicts; `--detector retinaface` takes biubug6/Pytorch_Retinaface's
+ResNet-50 state dict (Resnet50_Final.pth) or an npz of it, and serves rows
+with five landmarks.  `--quant int8` serves the pyramid, FaceBoxes or
+RetinaFace family with int8 convolutions (kernels K5 and K4 on the card) and
+is refused for the mtcnn cascade, as in fdt.  `--dp_devices n` shards each
+micro-batch over n devices (the pyramid, FaceBoxes and RetinaFace families):
+the first n cards, or n slots on the CPU with --device cpu
+(fdt_torch.dist.make_mesh).
 """
 from __future__ import annotations
 
@@ -43,6 +46,12 @@ def build_service(args):
         return DetectionService("pyramidbox", det, **kw)
     if not args.weights:
         raise SystemExit(f"--weights is required for --detector {args.detector}")
+    if args.detector == "retinaface":
+        from fdt_torch.models.loader import load_retinaface_detector
+        det = load_retinaface_detector(args.weights, budget=5000,
+                                       device=None if mesh else args.device,
+                                       quant=args.quant, mesh=mesh)
+        return DetectionService("retinaface", det, **kw)
     if args.detector == "facebox":
         from fdt_torch.models.loader import load_facebox_detector
         return DetectionService("facebox", load_facebox_detector(
@@ -66,7 +75,7 @@ def build_service(args):
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--detector", default="pyramid",
-                    choices=["pyramid", "facebox", "mtcnn"])
+                    choices=["pyramid", "facebox", "mtcnn", "retinaface"])
     ap.add_argument("--net", default="repo", help="pyramid variant")
     ap.add_argument("--weights", default=None,
                     help="variables npz or torch .pth/.pt; for --detector mtcnn: "
@@ -79,9 +88,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max_batch", type=int, default=32)
     ap.add_argument("--max_wait_ms", type=float, default=5.0)
     ap.add_argument("--quant", default=None, choices=[None, "int8"],
-                    help="int8 inference (pyramid and facebox)")
+                    help="int8 inference (pyramid, facebox and retinaface)")
     ap.add_argument("--dp_devices", default=0, type=int,
-                    help="data-parallel serving (pyramid/facebox): shard each "
+                    help="data-parallel serving (pyramid/facebox/retinaface): shard each "
                          "micro-batch over an n-device mesh")
     ap.add_argument("--no_warmup", action="store_true",
                     help="skip building the kernels and the warm-up batches")

@@ -1,5 +1,6 @@
 """Typed configuration for the PyramidBox family, FaceBoxes, MTCNN and the
-IoU tracker (copy of fdt/config.py:14-175).
+IoU tracker (copy of fdt/config.py:14-175), and for RetinaFace, which the
+JAX package does not have.
 
 The port keeps its own copy instead of importing fdt.config, so that nothing
 of the JAX package is needed at run time.
@@ -89,6 +90,25 @@ PYRAMID_CONFIGS = {c.name: c for c in
 
 # Mean BGR pixel subtracted before the forward
 PIXEL_MEAN_BGR = (104.0, 117.0, 123.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class RetinaConfig:
+    """RetinaFace (Deng et al., arXiv:1905.00641) as biubug6/Pytorch_Retinaface
+    builds it: `cfg_re50` of its data/config.py for the priors (a source map
+    of stride `steps[k]` holds `min_sizes[k]` square priors a cell, no
+    clipping) and the settings of its test_widerface.py for the detect
+    head (threshold 0.02, top 5000 into NMS at 0.4, 750 kept, and no class
+    with a single candidate dropped)."""
+    name: str = "Resnet50"
+    steps: Tuple[int, ...] = (8, 16, 32)
+    min_sizes: Tuple[Tuple[int, ...], ...] = ((16, 32), (64, 128), (256, 512))
+    detect: DetectConfig = dataclasses.field(default_factory=lambda: DetectConfig(
+        top_k=750, conf_thresh=0.02, nms_thresh=0.4, nms_top_k=5000,
+        variance=(0.1, 0.2), drop_single_candidate=False))
+
+
+RETINA_RES50 = RetinaConfig()
 
 
 @dataclasses.dataclass(frozen=True)

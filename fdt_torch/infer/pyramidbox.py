@@ -166,6 +166,11 @@ class PyramidBoxDetector:
     `source_shapes[(width, height)]` holds the (f_width, f_height) of every
     source map, recorded at the first forward at that size, for the sizes the
     LRU of `_priors_max` sizes still holds.
+
+    This is the port's one dense-detector path: RetinaFaceDetector
+    (infer/retinaface.py) runs it as it stands, with its own priors
+    (`_prior_strides`, `_make_priors`) and a head that carries landmarks
+    (`_head`).
     """
 
     def __init__(self, model, cfg: PyramidConfig | str = "repo",
@@ -203,17 +208,25 @@ class PyramidBoxDetector:
         key = (width, height)
         entry = self._priors.get(key)
         if entry is None:
-            if len(source_shapes) != len(self.cfg.face_priors.strides):
+            strides = self._prior_strides()
+            if len(source_shapes) != len(strides):
                 raise ValueError(f"the model has {len(source_shapes)} source maps; "
-                                 f"config {self.cfg.name!r} has priors for "
-                                 f"{len(self.cfg.face_priors.strides)}")
+                                 f"config {self.cfg.name!r} has priors for {len(strides)}")
             entry = self._priors[key] = (tuple(source_shapes), {})
         self._use_priors(key)
         on = entry[1]
         if device not in on:
-            on[device] = torch.from_numpy(
-                pyramid_face_priors(self.cfg, entry[0], width, height)).to(device)
+            on[device] = torch.from_numpy(self._make_priors(entry[0], width, height)).to(device)
         return on[device]
+
+    def _prior_strides(self) -> tuple:
+        """The strides of the source maps the config has priors for."""
+        return self.cfg.face_priors.strides
+
+    def _make_priors(self, source_shapes, width: int, height: int) -> np.ndarray:
+        """[P, 4] center-form priors of an image size, from the source shapes
+        of its first forward."""
+        return pyramid_face_priors(self.cfg, source_shapes, width, height)
 
     def _use_priors(self, key: tuple[int, int]) -> None:
         """`key` (width, height) becomes the priors LRU's most recent size
@@ -254,6 +267,7 @@ class PyramidBoxDetector:
         return x.permute(0, 3, 1, 2).to(self.dtype).contiguous(memory_format=self.memory_format)
 
     def _head(self, out: dict, priors: torch.Tensor, dcfg) -> torch.Tensor:
+        """The forward's outputs → the detect rows (softmax, then ssd_detect)."""
         conf = F.softmax(out["face_conf"], dim=-1)
         return ssd_detect(out["face_loc"], conf, priors, dcfg, budget=self.budget)
 

@@ -43,6 +43,7 @@ from fdt_torch.models.common import NestedSequential
 from fdt_torch.models.facebox import FaceBox
 from fdt_torch.models.mtcnn import ONet, PNet, RNet
 from fdt_torch.models.pyramidbox_mobile import build_pyramidbox
+from fdt_torch.models.retinaface import RetinaFace
 from fdt_torch.models.torch_convert import (load_reference_state_dict, load_torch_state_dict,
                                             reference_state_dict)
 
@@ -257,6 +258,33 @@ def load_pyramidbox_detector(variant: str, weights: str | None, **kw):
     model = (load_pyramidbox(weights, variant) if weights
              else build_pyramidbox(variant).eval())
     return PyramidBoxDetector(model, variant, **kw)
+
+
+def load_retinaface(path: str) -> nn.Module:
+    """A RetinaFace-ResNet50 (eval mode, CPU, float32) loaded strict from a
+    variables npz in fdt's layout or from biubug6/Pytorch_Retinaface's
+    state dict (`.pth`/`.pt`: `body.*`, `fpn.*`, `ssh1-3.*`, `ClassHead.*`,
+    `BboxHead.*`, `LandmarkHead.*`), with or without the `module.` prefix
+    that its released, DataParallel-saved checkpoint carries."""
+    model = RetinaFace()
+    if not str(path).endswith(TORCH_SUFFIXES):
+        return load_weights_file(model, path).eval()
+    sd = load_torch_state_dict(path)
+    prefix = "module." if sd and all(k.startswith("module.") for k in sd) else ""
+    return load_reference_state_dict(model, sd, strict=True, prefix=prefix).eval()
+
+
+def load_retinaface_detector(path: str, dtype=torch.float32, device=None, budget: int = 5000,
+                             detect_cfg=None, quant: str | None = None, **kw):
+    """A RetinaFaceDetector (fdt_torch.infer.retinaface) with the weights of
+    `path` (load_retinaface), computing in `dtype` (float32, or bfloat16
+    channels-last) on `device` (None: the card), `budget` boxes into NMS,
+    `detect_cfg` (default: test_widerface.py's settings, RETINA_RES50);
+    quant="int8" quantizes the convs from the loaded float32 weights.  **kw
+    go to the detector (precision=, mesh=)."""
+    from fdt_torch.infer.retinaface import RetinaFaceDetector
+    return RetinaFaceDetector(load_retinaface(path), detect_cfg=detect_cfg, budget=budget,
+                              dtype=dtype, device=device, quant=quant, **kw)
 
 
 def load_facebox_detector(weights: str, **kw):

@@ -48,6 +48,26 @@ def _resnet_stage(cin: int, num_blocks: int, planes: int, stride: int) -> Nested
                            for i in range(num_blocks)])
 
 
+def resnet50_trunk(module: nn.Module, num_blocks: Sequence[int] = (3, 4, 6, 3)) -> None:
+    """Register torchvision's ResNet-50 (v1.5: the stride on the 3×3) on
+    `module` as `conv1`, `bn1`, `layer1` … `layer4`: the stem's conv 7×7/2
+    and BatchNorm, then the bottleneck stages of 256, 512, 1024 and 2048
+    channels at strides 4, 8, 16 and 32."""
+    module.conv1 = conv(3, 64, 7, 2, 3, bias=False)
+    module.bn1 = batch_norm(64)
+    module.layer1 = _resnet_stage(64, num_blocks[0], 64, 1)
+    module.layer2 = _resnet_stage(256, num_blocks[1], 128, 2)
+    module.layer3 = _resnet_stage(512, num_blocks[2], 256, 2)
+    module.layer4 = _resnet_stage(1024, num_blocks[3], 512, 2)
+
+
+def resnet_stem(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """The stem of a module that resnet50_trunk built: conv 7×7/2 → BN →
+    ReLU → max-pool 3/2/1 (the module keeps the pool's input height on a
+    space mesh)."""
+    return max_pool(F.relu(module.bn1(module.conv1(x))), 3, 2, 1, owner=module)
+
+
 def _extra_layer(cin: int, mid: int, out: int) -> NestedSequential:
     """conv1×1 → bn → relu → conv3×3/2 → bn → relu (ReLUs at indices 2 and 5)."""
     return NestedSequential(conv(cin, mid, 1), batch_norm(mid), nn.ReLU(),
@@ -73,12 +93,7 @@ class PyramidBox(nn.Module):
     def __init__(self, num_blocks: Sequence[int] = (3, 4, 6, 3), remat: bool = False):
         super().__init__()
         self.remat = remat
-        self.conv1 = conv(3, 64, 7, 2, 3, bias=False)
-        self.bn1 = batch_norm(64)
-        self.layer1 = _resnet_stage(64, num_blocks[0], 64, 1)
-        self.layer2 = _resnet_stage(256, num_blocks[1], 128, 2)
-        self.layer3 = _resnet_stage(512, num_blocks[2], 256, 2)
-        self.layer4 = _resnet_stage(1024, num_blocks[3], 512, 2)
+        resnet50_trunk(self, num_blocks)
         self.layer5 = _extra_layer(2048, 512, 512)
         self.layer6 = _extra_layer(512, 128, 256)
 
@@ -103,7 +118,7 @@ class PyramidBox(nn.Module):
         return x
 
     def forward(self, x: torch.Tensor, heads: bool = False, features: bool = False) -> dict:
-        c1 = max_pool(F.relu(self.bn1(self.conv1(x))), 3, 2, 1, owner=self)
+        c1 = resnet_stem(self, x)
         c2 = self._blocks(self.layer1, c1)
         c3 = self._blocks(self.layer2, c2)
         c4 = self._blocks(self.layer3, c3)

@@ -988,3 +988,32 @@ def test_graphs_sharing_a_pool_stay_bit_equal_through_alternation_and_eviction(
     for _ in range(3):
         for key in keys + [fifth]:
             call(key)
+
+
+def test_retinaface_graph_replays_bit_equal_to_eager_at_the_bench_size(card, tmp_path):
+    """The bf16 RetinaFace-ResNet50 of the benchmark's retina.eval (seeded
+    weights through load_retinaface_detector, 8 × 1024², threshold 0.02,
+    NMS 0.4, budget 5000, top_k 750): the first call eager, the second a
+    capture, four replays, every answer equal to the eager `_detect_on` bit
+    for bit, landmarks included; K1's launch counter +1 at the eager call, +2
+    at the capture and +0 over the replays, which run K1 inside the graph."""
+    from portbench import generate
+    from portbench.reference.retinaface import seeded_state_dict
+    from fdt_torch.models import load_retinaface_detector
+
+    path = str(tmp_path / "retina_seeded.pth")
+    torch.save(seeded_state_dict(20190502), path)
+    det = load_retinaface_detector(path, dtype=torch.bfloat16, device=card)
+    frames = generate.frames(2**31 + 29, 16, 1024, 1024).reshape(2, 8, 1024, 1024, 3)
+    wants = [_eager(det, f, 0.02, 0.4) for f in frames]
+    c0, k1 = _graph_counts(), nms_op.launches.count
+    for i in range(6):
+        got = det.detect_tensor(frames[i % 2], conf_thresh=0.02, nms_thresh=0.4)
+        assert got.shape == (8, 2, 750, 15)
+        assert np.array_equal(got, wants[i % 2]), i
+        if i == 1:
+            assert nms_op.launches.count == k1 + 3
+    assert nms_op.launches.count == k1 + 3
+    assert tuple(a - b for a, b in zip(_graph_counts(), c0)) == (1, 1, 4)
+    assert (wants[0][:, 1, :, 0] > 0).sum(-1).min() == 750  # full rows to compare
+    assert np.abs(wants[0][:, 1, :, 5:]).max() > 0

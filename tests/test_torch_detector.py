@@ -168,7 +168,7 @@ def test_service_close_leaves_no_live_thread(port_detector):
 
 def test_service_rejects_other_families_and_bad_input(port_detector):
     with pytest.raises(ValueError, match="family"):
-        DetectionService("retinaface", port_detector)
+        DetectionService("scrfd", port_detector)
     with DetectionService("pyramidbox", port_detector, frame_size=(64, 64)) as svc:
         with pytest.raises(ValueError, match="HxWx3"):
             svc.submit(np.zeros((64, 64), np.uint8))
