@@ -1756,6 +1756,81 @@ def _spread(rates) -> float:
     return (max(rates) - min(rates)) / max(rates) * 100
 
 
+# the fold of conv → BatchNorm → ReLU chains (fdt_torch/models/fused.py) on
+# the benchmark's three bf16 detectors: name → (its cell, fused_convs and
+# bn_unfused of one forward); try1 folds nothing (PERF.md §6)
+FUSED = {"repo": ("res50.eval", 83, 0), "try1": ("try1.batch", 0, 41),
+         "retina": ("retina.eval", 69, 0)}
+REFOLD_CHECK_US_MAX = 500.0  # the once-a-call check, nothing changed (52-97 µs measured)
+
+
+def phase_fused(device) -> dict:
+    """The fold of conv → BatchNorm → ReLU chains (fdt_torch/models/fused.py)
+    on the benchmark's three bf16 detectors at their batch and size (the
+    flagship and try1 on their npz, RetinaFace-ResNet50 at its default
+    initialisation): the counters of the first (eager) call, which must be
+    FUSED's; the device operations and kernels of one graph replay, none of
+    them a BatchNorm's where the model folds; and the host microseconds of
+    the detector's once-a-call check for weights changed in place
+    (`_refold`, nothing changed: nothing folded again, under
+    REFOLD_CHECK_US_MAX)."""
+    import dataclasses
+
+    from fdt_torch.config import PYRAMID_CONFIGS, RETINA_RES50
+    from fdt_torch.infer import PyramidBoxDetector
+    from fdt_torch.infer.retinaface import RetinaFaceDetector
+    from fdt_torch.models import RetinaFace, fused, load_pyramidbox
+    from torch.profiler import ProfilerActivity, profile
+
+    cases = {"repo": (8, 640, 0.0, 0.35), "try1": (32, 640, 0.3, 0.3),
+             "retina": (8, 1024, 0.02, 0.4)}
+    out = {}
+    for name, (batch, size, conf, nms_thresh) in cases.items():
+        t0 = time.perf_counter()
+        kw = dict(budget=5000, dtype=torch.bfloat16, device=device)
+        if name == "retina":
+            det = RetinaFaceDetector(RetinaFace().eval(), detect_cfg=dataclasses.replace(
+                RETINA_RES50.detect, top_k=750), **kw)
+        else:
+            weights = WEIGHTS if name == "repo" else REPO / "net_weight/try1_distilled_mini.npz"
+            det = PyramidBoxDetector(load_pyramidbox(str(weights), name), name,
+                                     detect_cfg=dataclasses.replace(
+                                         PYRAMID_CONFIGS[name].detect, top_k=750), **kw)
+        frames = np.random.RandomState(4).randint(0, 256, (batch, size, size, 3), dtype=np.uint8)
+        fused.fused_convs.reset()
+        fused.bn_unfused.reset()
+        det.detect_tensor(frames, conf_thresh=conf, nms_thresh=nms_thresh)  # eager
+        counts = fused.fused_convs.count, fused.bn_unfused.count
+        for _ in range(2):  # the capture, a replay
+            det.detect_tensor(frames, conf_thresh=conf, nms_thresh=nms_thresh)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            det.detect_tensor(frames, conf_thresh=conf, nms_thresh=nms_thresh)
+        ops = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+        kernels = [n for n in ops if not n.startswith(("Memcpy", "Memset"))]
+        check_us = []
+        for _ in range(5):
+            t = time.perf_counter()
+            for _ in range(200):
+                det._refold()
+            check_us.append((time.perf_counter() - t) / 200 * 1e6)
+        refolded = [f.refresh() for f in det._folds.values()]
+        out[name] = dict(fused_convs=counts[0], bn_unfused=counts[1], replay_operations=len(ops),
+                         replay_kernels=len(kernels),
+                         batch_norm_kernels=sum("batch_norm" in n for n in kernels),
+                         refold_check_us=round(min(check_us), 2),
+                         folded_sources=sum(len(f._slots) for f in det._folds.values()))
+        _phase("fused", t0, model=name, batch=batch, size=size,
+               **{k: v for k, v in out[name].items()})
+        assert counts == FUSED[name][1:], (name, counts)
+        assert bool(det._folds) == (counts[0] > 0) and not any(refolded), name
+        assert counts[0] == 0 or out[name]["batch_norm_kernels"] == 0, out[name]
+        assert out[name]["refold_check_us"] < REFOLD_CHECK_US_MAX, out[name]
+        del det
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_facebox(device):
     """FaceBoxes at 1024² on seeded weights: a float32 frame (the default
     precision="highest") against fdt's golden, images/s at batch 16
@@ -5736,6 +5811,7 @@ def main() -> int:
     det32, det16, launches, boxes_err = phase_flagship(device)
     facebox_det, k2_launches = phase_facebox(device)
     phase_variants(device)
+    phase_fused(device)
     int8_launches, int8_timed, int8_sums, int8_err = phase_int8(device, det16)
     mtcnn_launches, mtcnn_err = phase_mtcnn(device)
     track_k1_launches, track_k1_err, k3, k3_global = phase_tracking(device)

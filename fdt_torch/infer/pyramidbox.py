@@ -32,6 +32,11 @@ first call runs eagerly (`_detect_on`).  The CPU, a mesh, int8 and
 detect_device called directly (whose callers keep the device tensor past
 the next call) always run eagerly.
 
+On a CUDA device in bf16 without int8, each model's conv → BatchNorm →
+ReLU chains run as one cuDNN convolution each, the BatchNorm folded into
+the weights (fdt_torch.models.fused); a call first folds again the chains
+whose weights were changed in place since, so a replayed graph reads them.
+
 Spans (fdt_torch.utils.trace, recorded only while recording is on): `detect`
 around a whole call, its count the batch size (detect_tensor, or
 detect_device when called directly); under it `detect.upload` (the pageable
@@ -58,6 +63,7 @@ from fdt_torch.config import DetectConfig, PIXEL_MEAN_BGR, PYRAMID_CONFIGS, Pyra
 from fdt_torch.dist.mesh import replicated, run_sharded
 from fdt_torch.infer import graphs
 from fdt_torch.infer.detect import ssd_detect
+from fdt_torch.models import fused
 from fdt_torch.ops.quant import check_mode, int8_convs
 from fdt_torch.utils import trace
 
@@ -192,6 +198,12 @@ class PyramidBoxDetector:
         self.model = place_model(model, self.device, dtype, self.memory_format, quant)
         # the model on each device that runs a shard (only self.model without a mesh)
         self._models = replicated(mesh, self.model) if mesh else {self.device: self.model}
+        # bf16 on the card: each model's conv → BatchNorm → ReLU chains folded
+        # into one cuDNN call each (models/fused.py), checked once a call
+        self._folds = {}
+        if fused.applies(self.device, dtype, self.quant):
+            self._folds = {d: f for d, m in self._models.items()
+                           if (f := fused.fold(m)) is not None}
         self._means = {d: torch.tensor(PIXEL_MEAN_BGR, dtype=torch.float32, device=d)
                        for d in self._models}
         # (width, height) → (source shapes, {device: priors}), least
@@ -203,6 +215,12 @@ class PyramidBoxDetector:
     @property
     def source_shapes(self) -> dict[tuple[int, int], tuple]:
         return {size: shapes for size, (shapes, _) in self._priors.items()}
+
+    def _refold(self) -> None:
+        """Fold again the chains whose weights changed since (an in-place
+        load into the model), before this call's forward or replay."""
+        for folding in self._folds.values():
+            folding.refresh()
 
     def _priors_for(self, width: int, height: int, source_shapes, device) -> torch.Tensor:
         key = (width, height)
@@ -255,6 +273,7 @@ class PyramidBoxDetector:
         by shard, gathered there).  Always eager: the tensor is the
         caller's to keep."""
         dcfg = self._dcfg(images_u8, conf_thresh, nms_thresh)
+        self._refold()
         with trace.span_once("detect", len(images_u8)):
             if self.mesh is None:
                 return self._detect_on(self.device, images_u8, dcfg)
@@ -275,7 +294,8 @@ class PyramidBoxDetector:
         _, h, w, _ = images_u8.shape
         with trace.span("detect.upload"):
             x = self._model_input(images_u8.to(device, non_blocking=True), device)
-        with tf32_for(self.precision), trace.span("model.forward"):
+        with tf32_for(self.precision), fused.active(self._folds.get(device)), \
+                trace.span("model.forward"):
             out = self._models[device](x)
         with trace.span("detect.head"):
             return self._head(out, self._priors_for(w, h, out["source_shapes"], device), dcfg)
@@ -286,7 +306,7 @@ class PyramidBoxDetector:
         model and its input."""
         _, h, w, _ = static_in.shape
         x = self._model_input(static_in, self.device)
-        with tf32_for(self.precision):
+        with tf32_for(self.precision), fused.active(self._folds.get(self.device)):
             out = self.model(x)
         priors = self._priors_for(w, h, out["source_shapes"], self.device)
         return self._head(out, priors, dcfg), (priors, self._means[self.device])
@@ -308,6 +328,7 @@ class PyramidBoxDetector:
     @torch.inference_mode()
     def _detect_graphed(self, images_u8: torch.Tensor, conf_thresh, nms_thresh) -> np.ndarray:
         dcfg = self._dcfg(images_u8, conf_thresh, nms_thresh)
+        self._refold()
         self._use_priors((images_u8.shape[2], images_u8.shape[1]))
         return self._graphs.detect((tuple(images_u8.shape), dcfg, self.budget), images_u8,
                                    self.model, lambda x: self._graph_chain(x, dcfg),

@@ -12,6 +12,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fdt_torch.dist import multihost, space
+from fdt_torch.models import fused
 
 
 def conv(cin: int, cout: int, kernel: int, stride: int = 1, padding: int = 0,
@@ -55,10 +56,14 @@ class BatchNorm2d(nn.BatchNorm2d):
     with the statistics of the GLOBAL batch, as fdt's SPMD step does:
     [Σx, Σx², count] summed over the ranks by a differentiable all-reduce,
     mean = Σx/n and var = max(Σx²/n − mean², 0) in float32 (flax's
-    formula), so every rank updates the same running statistics."""
+    formula), so every rank updates the same running statistics.
+
+    An eval-mode forward counts in `fused.bn_unfused`: a BatchNorm folded
+    into its conv (fused.py) is not called."""
 
     def forward(self, x):
         if not self.training:
+            fused.bn_unfused.count += 1
             return super().forward(x)
         if multihost.group() is not None:
             return self._forward_global(x)
@@ -146,7 +151,8 @@ class ConvBNReLU(NestedSequential):
 
 class SSHContext(nn.Module):
     """SSH context module: 3×3 ‖ (dilated 3×3 → 3×3) ‖ (dilated → dilated → 3×3),
-    concatenated to 2*xchannels channels."""
+    concatenated to 2*xchannels channels.  Each conv's ReLU is its epilogue
+    where a Folding holds it (fused.py): the flagship's do, try1's do not."""
 
     def __init__(self, cin: int, xchannels: int = 256):
         super().__init__()
@@ -157,12 +163,18 @@ class SSHContext(nn.Module):
         self.conv2_2 = conv(xc // 2, xc // 2, 3, 1, 2, dilation=2)
         self.conv2_2_1 = conv(xc // 2, xc // 2, 3, 1, 1)
 
+    def relu_chains(self):
+        """Its conv → ReLU chains (fused.py), which a model that folds them
+        declares among its own `conv_chains()`."""
+        return [(c, None) for c in (self.conv1, self.conv2, self.conv2_1, self.conv2_2,
+                                    self.conv2_2_1)]
+
     def forward(self, x):
-        x1 = F.relu(self.conv1(x))
-        x2 = F.relu(self.conv2(x))
-        x2_1 = F.relu(self.conv2_1(x2))
-        x2_2 = F.relu(self.conv2_2(x2))
-        x2_2 = F.relu(self.conv2_2_1(x2_2))
+        x1 = fused.conv_bn(self.conv1, None, x)
+        x2 = fused.conv_bn(self.conv2, None, x)
+        x2_1 = fused.conv_bn(self.conv2_1, None, x2)
+        x2_2 = fused.conv_bn(self.conv2_2, None, x2)
+        x2_2 = fused.conv_bn(self.conv2_2_1, None, x2_2)
         return torch.cat([x1, x2_1, x2_2], dim=1)
 
 

@@ -9,16 +9,18 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from fdt_torch.models import fused
 from fdt_torch.models.common import (ContextTexture, NestedSequential, SSHContext,
                                      add_pyramid_heads, batch_norm, checkpoint,
                                      conv, face_outputs, max_pool)
 
 
 class Bottleneck(nn.Module):
-    """ResNet50 bottleneck."""
+    """ResNet50 bottleneck.  Where a Folding holds its convs (fused.py) each
+    runs as one cuDNN call: conv3's epilogue takes bn3, the downsample's
+    folded bias, the shortcut's add and the ReLU."""
 
     def __init__(self, cin: int, planes: int, stride: int = 1):
         super().__init__()
@@ -34,12 +36,15 @@ class Bottleneck(nn.Module):
             self.downsample = nn.Sequential(conv(cin, 4 * p, 1, stride, bias=False),
                                             batch_norm(4 * p))
 
+    def conv_chains(self):
+        last = (self.conv3, self.bn3, *(self.downsample or ()))
+        return [(self.conv1, self.bn1), (self.conv2, self.bn2), last]
+
     def forward(self, x):
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        sc = x if self.downsample is None else self.downsample(x)
-        return F.relu(out + sc)
+        out = fused.conv_bn(self.conv1, self.bn1, x)
+        out = fused.conv_bn(self.conv2, self.bn2, out)
+        sc = x if self.downsample is None else fused.conv_bn(*self.downsample, x, relu=False)
+        return fused.conv_bn(self.conv3, self.bn3, out, add=sc)
 
 
 def _resnet_stage(cin: int, num_blocks: int, planes: int, stride: int) -> NestedSequential:
@@ -61,17 +66,31 @@ def resnet50_trunk(module: nn.Module, num_blocks: Sequence[int] = (3, 4, 6, 3)) 
     module.layer4 = _resnet_stage(1024, num_blocks[3], 512, 2)
 
 
+def stem_chains(module: nn.Module) -> list:
+    """The conv chain of the stem that resnet50_trunk registered on `module`."""
+    return [(module.conv1, module.bn1)]
+
+
 def resnet_stem(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """The stem of a module that resnet50_trunk built: conv 7×7/2 → BN →
     ReLU → max-pool 3/2/1 (the module keeps the pool's input height on a
     space mesh)."""
-    return max_pool(F.relu(module.bn1(module.conv1(x))), 3, 2, 1, owner=module)
+    return max_pool(fused.conv_bn(module.conv1, module.bn1, x), 3, 2, 1, owner=module)
 
 
-def _extra_layer(cin: int, mid: int, out: int) -> NestedSequential:
-    """conv1×1 → bn → relu → conv3×3/2 → bn → relu (ReLUs at indices 2 and 5)."""
-    return NestedSequential(conv(cin, mid, 1), batch_norm(mid), nn.ReLU(),
+class ExtraLayer(NestedSequential):
+    """conv1×1 → bn → relu → conv3×3/2 → bn → relu (ReLUs at indices 2 and 5);
+    each conv's bias folds into its BatchNorm's shift (fused.py)."""
+
+    def __init__(self, cin: int, mid: int, out: int):
+        super().__init__(conv(cin, mid, 1), batch_norm(mid), nn.ReLU(),
                          conv(mid, out, 3, 2, 1), batch_norm(out), nn.ReLU())
+
+    def conv_chains(self):
+        return [(self[0], self[1]), (self[3], self[4])]
+
+    def forward(self, x):
+        return fused.conv_bn(self[3], self[4], fused.conv_bn(self[0], self[1], x))
 
 
 class PyramidBox(nn.Module):
@@ -94,8 +113,8 @@ class PyramidBox(nn.Module):
         super().__init__()
         self.remat = remat
         resnet50_trunk(self, num_blocks)
-        self.layer5 = _extra_layer(2048, 512, 512)
-        self.layer6 = _extra_layer(512, 128, 256)
+        self.layer5 = ExtraLayer(2048, 512, 512)
+        self.layer6 = ExtraLayer(512, 128, 256)
 
         self.latlayer_fc = conv(2048, 2048, 1)
         self.latlayer_c6 = conv(512, 512, 1)
@@ -110,6 +129,12 @@ class PyramidBox(nn.Module):
             self.add_module(name, SSHContext(cin, 256))
 
         add_pyramid_heads(self, 6, 512)
+
+    def conv_chains(self):
+        # try1 shares the SSH and declares no chain: folded, its held score
+        # bias drifts from float32's by 0.0014-0.0016 (PERF.md §6)
+        return stem_chains(self) + [c for name in self._SSH_IN
+                                    for c in getattr(self, name).relu_chains()]
 
     def _blocks(self, blocks, x):
         remat = self.remat and torch.is_grad_enabled()

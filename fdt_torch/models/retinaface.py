@@ -26,17 +26,31 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fdt_torch.models import fused
 from fdt_torch.models.common import batch_norm, conv
-from fdt_torch.models.pyramidbox import resnet50_trunk, resnet_stem
+from fdt_torch.models.pyramidbox import resnet50_trunk, resnet_stem, stem_chains
 
 ANCHORS = 2  # priors a cell, one a min_size
 
 
-def conv_bn(cin: int, cout: int, kernel: int = 3, relu: bool = True) -> nn.Sequential:
-    """biubug6's conv_bn (3×3), conv_bn_no_relu (relu=False) and conv_bn1X1
-    (kernel=1): conv without bias → BatchNorm (→ ReLU), children 0, 1 (, 2)."""
-    layers = [conv(cin, cout, kernel, 1, kernel // 2, bias=False), batch_norm(cout)]
-    return nn.Sequential(*layers, nn.ReLU()) if relu else nn.Sequential(*layers)
+class ConvBN(nn.Sequential):
+    """Conv → BatchNorm → ReLU, children 0, 1, 2; one cuDNN call where a
+    Folding holds the conv (fused.py)."""
+
+    def conv_chains(self):
+        return [(self[0], self[1])]
+
+    def forward(self, x):
+        return fused.conv_bn(self[0], self[1], x)
+
+
+def conv_bn(cin: int, cout: int, kernel: int = 3) -> ConvBN:
+    """biubug6's conv_bn (3×3), conv_bn1X1 (kernel=1) and conv_bn_no_relu:
+    conv without bias → BatchNorm → ReLU.  The SSH's conv_bn_no_relu
+    branches take here the ReLU that biubug6 applies after their
+    concatenation (ReLU distributes over it; nn.ReLU holds no state, so the
+    state dict's names are biubug6's)."""
+    return ConvBN(conv(cin, cout, kernel, 1, kernel // 2, bias=False), batch_norm(cout), nn.ReLU())
 
 
 class ResNet50Body(nn.Module):
@@ -45,6 +59,9 @@ class ResNet50Body(nn.Module):
     def __init__(self):
         super().__init__()
         resnet50_trunk(self)
+
+    def conv_chains(self):
+        return stem_chains(self)
 
     def forward(self, x):
         c2 = self.layer1(resnet_stem(self, x))
@@ -73,16 +90,16 @@ class SSH(nn.Module):
     def __init__(self, in_channel: int = 256, out_channel: int = 256):
         super().__init__()
         quarter = out_channel // 4
-        self.conv3X3 = conv_bn(in_channel, out_channel // 2, relu=False)
+        self.conv3X3 = conv_bn(in_channel, out_channel // 2)
         self.conv5X5_1 = conv_bn(in_channel, quarter)
-        self.conv5X5_2 = conv_bn(quarter, quarter, relu=False)
+        self.conv5X5_2 = conv_bn(quarter, quarter)
         self.conv7X7_2 = conv_bn(quarter, quarter)
-        self.conv7x7_3 = conv_bn(quarter, quarter, relu=False)  # sic: biubug6's name
+        self.conv7x7_3 = conv_bn(quarter, quarter)  # sic: biubug6's name
 
     def forward(self, x):
         t = self.conv5X5_1(x)
-        return F.relu(torch.cat([self.conv3X3(x), self.conv5X5_2(t),
-                                 self.conv7x7_3(self.conv7X7_2(t))], dim=1))
+        return torch.cat([self.conv3X3(x), self.conv5X5_2(t), self.conv7x7_3(self.conv7X7_2(t))],
+                         dim=1)
 
 
 class Head(nn.Module):

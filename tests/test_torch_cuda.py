@@ -1017,3 +1017,140 @@ def test_retinaface_graph_replays_bit_equal_to_eager_at_the_bench_size(card, tmp
     assert tuple(a - b for a, b in zip(_graph_counts(), c0)) == (1, 1, 4)
     assert (wants[0][:, 1, :, 0] > 0).sum(-1).min() == 750  # full rows to compare
     assert np.abs(wants[0][:, 1, :, 5:]).max() > 0
+
+
+# the fold of conv → BatchNorm → ReLU chains (fdt_torch/models/fused.py) on
+# the benchmark's three detectors: variant → (its cell, fused_convs and
+# bn_unfused of one forward)
+FUSED = chip_smoke.FUSED
+
+
+def _fused_bench_detector(variant, card, tmp_path):
+    """The benchmark's detector of `variant` ("retina": retina.eval's
+    seeded RetinaFace-ResNet50) and its plain float32 reference detector."""
+    if variant != "retina":
+        from portbench.reference.detect import ReferenceDetector
+        return (_bench_detector(variant, card),
+                ReferenceDetector(str(REPO / BENCH_DETECTORS[variant][0]), variant, card))
+    from fdt_torch.models import load_retinaface_detector
+    from portbench.reference.retinaface import ReferenceDetector, seeded_state_dict
+
+    path = str(tmp_path / "retina_seeded.pth")
+    torch.save(seeded_state_dict(20190502), path)
+    return (load_retinaface_detector(path, dtype=torch.bfloat16, device=card),
+            ReferenceDetector(seeded_state_dict(20190502), card))
+
+
+def _bench_traffic(variant):
+    """(frames, threshold, NMS threshold) of the variant's cell, one batch."""
+    from portbench import generate
+
+    if variant == "retina":
+        return generate.frames(2**31 + 31, 8, 1024, 1024), 0.02, 0.4
+    _, batch, conf, nms_thresh = BENCH_DETECTORS[variant]
+    return generate.frames(2**31 + 37, batch, 640, 640), conf, nms_thresh
+
+
+@pytest.mark.parametrize("variant", sorted(FUSED))
+def test_fused_detect_holds_the_cells_limits_against_the_unfused_network(card, variant,
+                                                                          tmp_path):
+    """The bf16 detector's folded chains (try1 folds none) against the same
+    bf16 network run through its modules: the cell's plain reference detector with its
+    network swapped for the detector's model called outside a Folding (the
+    modules, every BatchNorm its own pass), and its head on that.  The
+    folded detect's rows hold the cell's limits (portbench/limits/) by
+    portbench/check.py's numbers against it, and against the float32
+    reference itself.  The first (eager) call enqueues the predicted
+    fused_convs and bn_unfused; the capture twice that; the replays none,
+    and each equals the eager answer bit for bit."""
+    import json
+
+    from fdt_torch.models import fused
+    from portbench import check
+    from portbench.entries import batch, batch_landmarks
+    from portbench.reference.detect import HeadSettings
+
+    cell, n_fused, n_bn = FUSED[variant]
+    det, ref = _fused_bench_detector(variant, card, tmp_path)
+    assert bool(det._folds) == (n_fused > 0)  # try1 declares no chain
+    frames, conf, nms_thresh = _bench_traffic(variant)
+    head = HeadSettings(conf, nms_thresh, 5000, 750)
+    counts = []
+    outs = []
+    for _ in range(4):  # eager, capture, two replays
+        fused.fused_convs.reset()
+        fused.bn_unfused.reset()
+        outs.append(det.detect_tensor(frames, conf_thresh=conf, nms_thresh=nms_thresh))
+        counts.append((fused.fused_convs.count, fused.bn_unfused.count))
+    assert counts == [(n_fused, n_bn), (2 * n_fused, 2 * n_bn), (0, 0), (0, 0)]
+    assert all(np.array_equal(o, outs[0]) for o in outs[1:])
+    _, h, w, _ = frames.shape
+    rows = (batch_landmarks._rows if variant == "retina" else batch._rows)(outs[0], w, h)
+    assert sum(len(r) for r in rows) > 0
+
+    def unfused_net(x):
+        out = det.model(x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last))
+        tail = (out["face_landm"],) if variant == "retina" else ()
+        return (out["face_loc"], out["face_conf"], *tail,
+                [tuple(s) for s in out["source_shapes"]])
+
+    limits = json.loads((REPO / "portbench" / "limits" / f"{cell}.json").read_text())["limits"]
+    plain = ref(frames, head)
+    ref.net = unfused_net
+    unfused = ref(frames, head)
+    for against in (unfused, plain):
+        per_image = [check.compare_image(r[:, :5], a, nms_thresh, conf, 750, card)
+                     for r, a in zip(rows, against)]
+        numbers = check.summarize(per_image)
+        if variant == "retina":
+            numbers["landmark_gap_mean"] = float(np.concatenate(
+                [batch_landmarks.landmark_gap(r, a, card) for r, a in zip(rows, against)]).mean())
+        ok, checks = check.judge(numbers, limits)
+        assert ok, checks
+
+
+@pytest.mark.parametrize("variant", ["repo", "retina"])
+def test_fused_replay_runs_no_batchnorm_kernel(card, variant, tmp_path):
+    """One replay of the flagship's and RetinaFace's detect graph, profiled:
+    no kernel of its is a BatchNorm's; the counts of its device operations
+    and kernels are printed for the record."""
+    from torch.profiler import ProfilerActivity, profile
+
+    det, _ = _fused_bench_detector(variant, card, tmp_path)
+    frames, conf, nms_thresh = _bench_traffic(variant)
+    for _ in range(2):  # eager, capture
+        det.detect_tensor(frames, conf_thresh=conf, nms_thresh=nms_thresh)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        det.detect_tensor(frames, conf_thresh=conf, nms_thresh=nms_thresh)
+    names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    kernels = [n for n in names if not n.startswith(("Memcpy", "Memset"))]
+    print(f"{variant}: {len(names)} device operations, {len(kernels)} kernels a replay")
+    assert kernels and not [n for n in kernels if "batch_norm" in n]
+
+
+def test_weights_loaded_in_place_between_replays_reach_the_next_answer(card, tmp_path):
+    """RetinaFace (bf16, 2 × 256²) captured and replayed; new weights loaded
+    in place into det.model (load_model_weights, as select_checkpoint
+    loads): the next replay, with no new capture, equals a freshly built
+    detector's answer on those weights bit for bit, and differs from the
+    old answer."""
+    from fdt_torch.models import load_retinaface_detector
+    from fdt_torch.train.checkpoint import load_model_weights
+    from portbench.reference.retinaface import seeded_state_dict
+
+    old, new = str(tmp_path / "old.pth"), str(tmp_path / "new.pth")
+    torch.save(seeded_state_dict(20190502), old)
+    torch.save(seeded_state_dict(7), new)
+    det = load_retinaface_detector(old, dtype=torch.bfloat16, device=card)
+    frames = np.random.RandomState(9).randint(0, 256, (2, 256, 256, 3), dtype=np.uint8)
+    before = [det.detect_tensor(frames) for _ in range(3)]  # eager, capture, replay
+    assert np.array_equal(before[2], before[0])
+    captures = _graph_counts()[1]
+    ptr = det.model.body.conv1.weight.data_ptr()
+    load_model_weights(new, det.model)
+    assert det.model.body.conv1.weight.data_ptr() == ptr  # in place
+    got = det.detect_tensor(frames)
+    assert _graph_counts()[1] == captures
+    want = load_retinaface_detector(new, dtype=torch.bfloat16, device=card).detect_tensor(frames)
+    assert np.array_equal(got, want)
+    assert not np.array_equal(got, before[0])
